@@ -1,0 +1,114 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These tests need an NVIDIA GPU and `nvcc`; without a card every one of
+them skips. They import neither JAX nor the JAX package, so on a machine
+that has no JAX they run without the repository's `conftest.py`:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
+
+`chip_smoke.py` holds the same kernels to the same plain versions at the
+serving shapes; these add the other layer widths the kernel takes at run
+time (the hidden sizes grow with the input width), its shared-memory
+limits and the wrapper's launch checks.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cvaegan_tpu_torch import CVAEGAN
+from cvaegan_tpu_torch.core.state import apply_eval, apply_train
+from cvaegan_tpu_torch.kernels import fused_mlp
+from cvaegan_tpu_torch.models.layers import hidden_sizes, one_hot
+
+pytestmark = pytest.mark.cuda
+
+FINALS = ("sigmoid", "tanh", "none")
+NS = (1, 7, 100, 511, 513, 4096)
+# Input widths and the shared-memory path each one takes: 5 fits 32 rows
+# in 48 KB of static shared memory, 133 (the serving width) needs dynamic
+# shared memory for 32 rows, 1100 only fits 16 rows, 2000 only 8.
+IN_WIDTHS = (5, 133, 1100, 2000)
+OUT = 30
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _mlp(d0, device, seed=0):
+    dims = (d0, *hidden_sizes(d0), OUT)
+    rng = np.random.default_rng(seed)
+    ws = [rng.standard_normal((dims[i], dims[i + 1])) / np.sqrt(dims[i])
+          for i in range(4)]
+    bs = [0.1 * rng.standard_normal(dims[i + 1]) for i in range(4)]
+    return ([torch.tensor(w, dtype=torch.float32, device=device) for w in ws],
+            [torch.tensor(b, dtype=torch.float32, device=device) for b in bs])
+
+
+def _tolerance(d0):
+    # Both sides accumulate in float32 (TF32 off), in different orders; the
+    # rounding of a sum of K unit-scale terms grows like sqrt(K), so the
+    # absolute tolerance of the serving widths (K <= 256) is scaled by
+    # sqrt(K / 256) for the wider layers.
+    k = max(d0, *hidden_sizes(d0))
+    return dict(rtol=1e-5, atol=1e-6 * max(1.0, float(np.sqrt(k / 256))))
+
+
+@pytest.mark.parametrize("final", FINALS)
+@pytest.mark.parametrize("d0", IN_WIDTHS)
+def test_fused_mlp4_matches_plain(device, d0, final):
+    ws, bs = _mlp(d0, device)
+    for n in NS:
+        x = torch.tensor(np.random.default_rng(n).standard_normal((n, d0),
+                                                                  dtype=np.float32),
+                         device=device)
+        before = fused_mlp.LAUNCHES
+        got = fused_mlp.fused_mlp4(x, ws, bs, final=final)
+        torch.cuda.synchronize()
+        assert fused_mlp.LAUNCHES == before + 1
+        want = fused_mlp.mlp4_reference(x, ws, bs, final=final)
+        assert got.shape == (n, OUT)
+        torch.testing.assert_close(got, want, **_tolerance(d0))
+
+
+def test_fused_mlp4_rejects_what_it_cannot_run(device):
+    ws, bs = _mlp(133, device)
+    x = torch.randn(64, 266, device=device)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mlp.fused_mlp4(x, ws, bs)
+    with pytest.raises(ValueError, match="one device"):
+        fused_mlp.fused_mlp4(torch.zeros(4, 133, device=device), ws[:3] + [ws[3].cpu()], bs)
+    wide_ws, wide_bs = _mlp(4000, device)
+    before = fused_mlp.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_mlp.fused_mlp4(torch.zeros(4, 4000, device=device), wide_ws, wide_bs)
+    assert fused_mlp.LAUNCHES == before
+    empty = fused_mlp.fused_mlp4(torch.zeros(0, 133, device=device), ws, bs)
+    assert empty.shape == (0, OUT)
+
+
+def test_generate_samples_fast_launches_the_kernel(device):
+    rng = np.random.default_rng(0)
+    x = rng.random((500, 30), dtype=np.float32)
+    y = (np.arange(500) % 5).astype(np.int32)
+    model = CVAEGAN(seed=0, device="cuda")
+    model._prepare((x, y))
+    gen = model.state["generator"]
+    apply_train(gen, 2.0 * torch.randn(256, 128, device=device),
+                torch.arange(256, device=device) % 5)
+    before = fused_mlp.LAUNCHES
+    s = model.generate_samples_fast(2, 1000)
+    assert fused_mlp.LAUNCHES == before + 1
+    assert s.shape == (1000, 30) and np.isfinite(s).all()
+    z = torch.randn(1000, 128, device=device)
+    labels = torch.full((1000,), 2, device=device)
+    fast = fused_mlp.fast_generator_forward(gen, z, one_hot(labels, 5))
+    module_out, _ = apply_eval(gen, z, labels)
+    torch.testing.assert_close(fast, module_out, rtol=1e-5, atol=1e-6)
