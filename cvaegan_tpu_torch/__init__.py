@@ -9,7 +9,8 @@ use). Importing the package does not touch CUDA.
 """
 
 from cvaegan_tpu_torch.algorithms.cvae_gan import CVAEGAN
+from cvaegan_tpu_torch.algorithms.rain_gan import RAIN_GAN
 
 __version__ = "0.1.0"
 
-__all__ = ["CVAEGAN"]
+__all__ = ["CVAEGAN", "RAIN_GAN"]

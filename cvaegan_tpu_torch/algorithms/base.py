@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cvaegan_tpu_torch import convert
 from cvaegan_tpu_torch.core import config as config_lib
 from cvaegan_tpu_torch.core.state import resolve_device
 from cvaegan_tpu_torch.data.tabular import TabularDataset
@@ -45,7 +46,7 @@ def _as_arrays(dataset) -> Tuple[np.ndarray, np.ndarray]:
 
 class GenerativeTrainer:
     """Base class. Subclasses set `name` and `config_key` and implement
-    `_build`, `_generator_forward` and, where they have one,
+    `_build`, `_jax_dims`, `_generator_forward` and, where they have one,
     `_classifier_logits`."""
 
     name: str = "base"
@@ -74,6 +75,11 @@ class GenerativeTrainer:
     def _build(self, init_generator: torch.Generator) -> Dict[str, nn.Module]:
         """Create the networks, initialised from `init_generator`, on
         `self.device`."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _jax_dims(tree) -> Tuple[int, int, int]:
+        """(feature_num, label_num, z_size) of the JAX trainer's state tree."""
         raise NotImplementedError
 
     def _build_state(self) -> nn.ModuleDict:
@@ -111,6 +117,21 @@ class GenerativeTrainer:
         }
         if self.state is None:
             self.state = self._build_state()
+
+    def load_jax_state(self, tree) -> None:
+        """Take the weights of the JAX trainer of the same name (plain
+        nested dicts of numpy arrays, one per network, see
+        `convert.state_from_jax`), building the networks from the tree's
+        shapes if needed."""
+        feature_num, label_num, z_size = self._jax_dims(tree)
+        if z_size != self.gan_cfg.z_size:
+            raise ValueError(f"the tree's generator takes z of {z_size}, "
+                             f"settings.gan.z_size is {self.gan_cfg.z_size}")
+        if self.state is None or (feature_num, label_num) != (
+                self.feature_num, self.label_num):
+            self.feature_num, self.label_num = feature_num, label_num
+            self.state = self._build_state()
+        convert.state_from_jax(tree, self.state)
 
     def _require_state(self) -> None:
         config_lib.check_compute_dtype(self.gan_cfg)

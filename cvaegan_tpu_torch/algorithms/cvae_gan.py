@@ -40,19 +40,7 @@ class CVAEGAN(GenerativeTrainer):
         }
         return {k: init_net(v, init_generator, self.device) for k, v in nets.items()}
 
-    def load_jax_state(self, tree) -> None:
-        """Take the weights of a JAX `CVAEGAN` (plain nested dicts of numpy
-        arrays, one per network, see `convert.cvaegan_state_from_jax`),
-        building the networks from the tree's shapes if needed."""
-        feature_num, label_num, z_size = convert.cvaegan_dims(tree)
-        if z_size != self.gan_cfg.z_size:
-            raise ValueError(f"the tree's generator takes z of {z_size}, "
-                             f"settings.gan.z_size is {self.gan_cfg.z_size}")
-        if self.state is None or (feature_num, label_num) != (
-                self.feature_num, self.label_num):
-            self.feature_num, self.label_num = feature_num, label_num
-            self.state = self._build_state()
-        convert.cvaegan_state_from_jax(tree, self.state)
+    _jax_dims = staticmethod(convert.cvaegan_dims)
 
     # --------------------------------------------------------- generation
     def _generator_forward(self, state, z, labels):

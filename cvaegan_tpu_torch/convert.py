@@ -11,7 +11,13 @@ of the port's modules:
   * `BatchNorm_{i}/BatchNorm_0` (the wrapper's inner Flax BatchNorm)
     gives scale, bias, mean and var;
   * `SpectralDense_{i}` gives kernel, bias and `spectral/u`, `spectral/v`;
-  * the classifier's `LayerNorm_0` gives scale and bias.
+  * the classifier's `LayerNorm_0` gives scale and bias;
+  * a RAIN-GAN `MultiHeadSelfAttention_0` holds the q, k, v and output
+    projections as `Dense_0` to `Dense_3`; a `ResidualAttentionBlock_{i}`
+    holds `LayerNorm_0`, the attention, `LayerNorm_1`, and its
+    feed-forward and shortcut layers as `Dense_{0,1,2}` (or
+    `SpectralDense_{0,1,2}` in the discriminator), the shortcut only
+    where the width changes.
 
 A leaf the port has no place for, or a place no leaf fills, raises.
 """
@@ -24,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cvaegan_tpu_torch.models import mlp
+from cvaegan_tpu_torch.models import attention, mlp
 from cvaegan_tpu_torch.models.layers import (
     BatchNorm,
     Dense,
@@ -59,12 +65,15 @@ def _linear(prefix: Path, layer: nn.Module) -> Leaves:
     return leaves
 
 
-def _stack(layers) -> Leaves:
-    """Sequential Dense/SpectralDense layers, named by Flax's counter."""
+def _named(prefix: Path, layers) -> Leaves:
+    """Dense/SpectralDense layers in call order, named by Flax's counter
+    of each kind."""
     leaves: Leaves = {}
-    for i, layer in enumerate(layers):
+    counts = {"Dense": 0, "SpectralDense": 0}
+    for layer in layers:
         kind = "SpectralDense" if isinstance(layer, SpectralDense) else "Dense"
-        leaves.update(_linear((f"{kind}_{i}",), layer))
+        leaves.update(_linear((*prefix, f"{kind}_{counts[kind]}"), layer))
+        counts[kind] += 1
     return leaves
 
 
@@ -93,6 +102,29 @@ def _trunk(prefix: Path, trunk: MLPTrunk) -> Leaves:
     return leaves
 
 
+def _attention(prefix: Path, mhsa: attention.MultiHeadSelfAttention) -> Leaves:
+    return _named(prefix, (mhsa.query, mhsa.key, mhsa.value, mhsa.out))
+
+
+def _block(prefix: Path, block: attention.ResidualAttentionBlock) -> Leaves:
+    dense = [block.ff1, block.ff2] + ([block.shortcut] if block.shortcut else [])
+    return {**_layernorm((*prefix, "LayerNorm_0"), block.norm1),
+            **_attention((*prefix, "MultiHeadSelfAttention_0"), block.attention),
+            **_layernorm((*prefix, "LayerNorm_1"), block.norm2),
+            **_named(prefix, dense)}
+
+
+def _rain(net: nn.Module, dense) -> Leaves:
+    """A RAIN network: its Dense/SpectralDense layers outside the blocks
+    (in call order), its `LayerNorm_0` where it has one, and its blocks."""
+    leaves = _named((), dense)
+    if hasattr(net, "norm"):
+        leaves.update(_layernorm(("LayerNorm_0",), net.norm))
+    for i, block in enumerate(net.blocks):
+        leaves.update(_block((f"ResidualAttentionBlock_{i}",), block))
+    return leaves
+
+
 def net_leaves(net: nn.Module) -> Leaves:
     """Every tensor of a port network or layer, keyed by its path in the
     Flax variable tree of its JAX counterpart."""
@@ -110,12 +142,21 @@ def net_leaves(net: nn.Module) -> Leaves:
                 **_linear(("Dense_1",), net.log_var)}
     if isinstance(net, mlp.Generator):
         if net.spectral:
-            return _stack([*net.layers, net.head])
+            return _named((), [*net.layers, net.head])
         return {**_trunk(trunk, net.trunk), **_linear(("Dense_0",), net.head)}
     if isinstance(net, mlp.Discriminator):
-        return _stack(net.layers)
+        return _named((), net.layers)
     if isinstance(net, mlp.Classifier):
-        return {**_stack(net.layers), **_layernorm(("LayerNorm_0",), net.norm)}
+        return {**_named((), net.layers), **_layernorm(("LayerNorm_0",), net.norm)}
+    if isinstance(net, attention.MultiHeadSelfAttention):
+        return _attention((), net)
+    if isinstance(net, attention.ResidualAttentionBlock):
+        return _block((), net)
+    if isinstance(net, attention.RAINEncoder):
+        return _rain(net, [net.proj, net.mu, net.log_var])
+    if isinstance(net, (attention.RAINGenerator, attention.RAINDiscriminator,
+                        attention.RAINClassifier)):
+        return _rain(net, [net.proj, net.head])
     raise TypeError(f"no Flax layout known for {type(net).__name__}")
 
 
@@ -146,8 +187,17 @@ def cvaegan_dims(tree: Mapping) -> Tuple[int, int, int]:
     return feature_num, label_num, z_size
 
 
-def cvaegan_state_from_jax(tree: Mapping, state: nn.ModuleDict) -> nn.ModuleDict:
-    """Fill a CVAE-GAN state (`encoder`, `generator`, `discriminator`,
+def rain_gan_dims(tree: Mapping) -> Tuple[int, int, int]:
+    """(feature_num, label_num, z_size) of a JAX RAIN-GAN state tree."""
+    gen = tree["generator"]["params"]
+    feature_num = int(np.shape(gen["Dense_1"]["kernel"])[1])
+    label_num = int(np.shape(tree["encoder"]["params"]["Dense_0"]["kernel"])[0]) - feature_num
+    z_size = int(np.shape(gen["Dense_0"]["kernel"])[0]) - label_num
+    return feature_num, label_num, z_size
+
+
+def state_from_jax(tree: Mapping, state: nn.ModuleDict) -> nn.ModuleDict:
+    """Fill a trainer's state (`encoder`, `generator`, `discriminator`,
     `classifier`, and `classifier_ema` under the EMA filter) from `tree`,
     which holds one Flax variable tree per network, each with `params`
     and its mutable collections. Every leaf is accounted for."""
@@ -157,3 +207,7 @@ def cvaegan_state_from_jax(tree: Mapping, state: nn.ModuleDict) -> nn.ModuleDict
     for name, net in state.items():
         load_net(net, tree[name])
     return state
+
+
+#: a RAIN-GAN's state is filled network by network, as a CVAE-GAN's is
+rain_gan_state_from_jax = state_from_jax

@@ -7,9 +7,10 @@ that has no JAX they run without the repository's `conftest.py`:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
 `chip_smoke.py` holds the same kernels to the same plain versions at the
-serving shapes; these add the other layer widths the kernel takes at run
-time (the hidden sizes grow with the input width), its shared-memory
-limits and the wrapper's launch checks.
+serving shapes; these add the other layer widths the fused MLP kernel
+takes at run time (the hidden sizes grow with the input width), its
+shared-memory limits, the block-attention kernels over every head dim and
+ragged sequence lengths, and the wrappers' launch checks.
 """
 
 import numpy as np
@@ -18,7 +19,12 @@ import torch
 
 from cvaegan_tpu_torch import CVAEGAN
 from cvaegan_tpu_torch.core.state import apply_eval, apply_train
-from cvaegan_tpu_torch.kernels import fused_mlp
+from cvaegan_tpu_torch.core.losses import AttentionRowEntropy
+from cvaegan_tpu_torch.kernels import block_attention, fused_mlp
+from cvaegan_tpu_torch.models.attention import (
+    MultiHeadSelfAttention,
+    ResidualAttentionBlock,
+)
 from cvaegan_tpu_torch.models.layers import hidden_sizes, one_hot
 
 pytestmark = pytest.mark.cuda
@@ -112,3 +118,106 @@ def test_generate_samples_fast_launches_the_kernel(device):
     fast = fused_mlp.fast_generator_forward(gen, z, one_hot(labels, 5))
     module_out, _ = apply_eval(gen, z, labels)
     torch.testing.assert_close(fast, module_out, rtol=1e-5, atol=1e-6)
+
+
+# ----------------------------------------------------------- block attention
+# Kernel against plain version: float32 sums in another order and exp/log
+# rounding, so the JAX tests' tolerance (`tests/test_kernels.py:99-100`).
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+ATTN_SEQS = (1, 7, 100, 127, 128, 129, 256, 1000)
+
+
+def _qkv(bh, seq, d, device, seed=0, scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [scale * torch.randn(bh, seq, d, generator=g, device=device)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("d", block_attention.HEAD_DIMS)
+def test_block_attention_matches_plain(device, d):
+    for seq in ATTN_SEQS:
+        for bh in (1, 8):
+            q, k, v = _qkv(bh, seq, d, device, seed=seq)
+            before = block_attention.LAUNCHES
+            got = block_attention.block_attention(q, k, v)
+            torch.cuda.synchronize()
+            assert block_attention.LAUNCHES == before + 1
+            torch.testing.assert_close(
+                got, block_attention.block_attention_reference(q, k, v), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("scale", (1.0, 10.0))
+@pytest.mark.parametrize("d", block_attention.HEAD_DIMS)
+def test_block_attention_with_entropy_matches_plain(device, d, scale):
+    """Scale 10 makes peaked rows, where m + log l - sl / l would cancel."""
+    for seq in ATTN_SEQS:
+        q, k, v = _qkv(4, seq, d, device, seed=seq, scale=scale)
+        before = block_attention.ENTROPY_LAUNCHES
+        out, ent = block_attention.block_attention_with_entropy(q, k, v)
+        torch.cuda.synchronize()
+        assert block_attention.ENTROPY_LAUNCHES == before + 1
+        want_out, want_ent = block_attention.block_attention_with_entropy_reference(q, k, v)
+        assert ent.shape == (4, seq)
+        torch.testing.assert_close(out, want_out, **ATTN_TOL)
+        torch.testing.assert_close(ent, want_ent, **ATTN_TOL)
+
+
+def test_block_attention_rejects_what_it_cannot_run(device):
+    q, k, v = _qkv(2, 64, 32, device)
+    before = (block_attention.LAUNCHES, block_attention.ENTROPY_LAUNCHES)
+    for fn in (block_attention.block_attention, block_attention.block_attention_with_entropy):
+        with pytest.raises(ValueError, match="head dim"):
+            fn(*_qkv(2, 64, 48, device))
+        with pytest.raises(TypeError, match="float32"):
+            fn(q.half(), k.half(), v.half())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1))
+        with pytest.raises(ValueError, match="aligned"):
+            flat = torch.randn(2 * 64 * 32 + 1, device=device)[1:].view(2, 64, 32)
+            fn(flat, k, v)
+        with pytest.raises(ValueError, match="one device"):
+            fn(q, k.cpu(), v)
+        with pytest.raises(RuntimeError, match="forward-only"):
+            fn(q.clone().requires_grad_(), k, v)
+    assert (block_attention.LAUNCHES, block_attention.ENTROPY_LAUNCHES) == before
+    empty = block_attention.block_attention(*_qkv(0, 64, 32, device))
+    assert empty.shape == (0, 64, 32)
+
+
+def test_attention_auto_dispatch_launches_once_per_forward(device):
+    """At seq >= 128, a multiple of 128, on CUDA: one B3 launch per
+    forward, and the same output and row entropies as the dense path."""
+    g = torch.Generator().manual_seed(0)
+    block = ResidualAttentionBlock(64, 64)
+    with torch.no_grad():  # unit-scale scores: neither uniform nor one-hot
+        for p in block.parameters():
+            p.normal_(0.0, p.shape[-1] ** -0.5 if p.dim() == 2 else 0.1, generator=g)
+    block = block.to(device).eval()
+    dense = MultiHeadSelfAttention(64, 4, use_kernel=False).to(device)
+    dense.load_state_dict(block.attention.state_dict())
+    x = torch.randn(2, 256, 64, generator=g).to(device)
+    before = block_attention.ENTROPY_LAUNCHES
+    with torch.no_grad():
+        out, stats = block.attention(x)
+        block(x)
+        want_out, probs = dense(x)
+    torch.cuda.synchronize()
+    assert block_attention.ENTROPY_LAUNCHES == before + 2
+    assert isinstance(stats, AttentionRowEntropy) and stats.value.shape == (2, 4, 256)
+    torch.testing.assert_close(out, want_out, **ATTN_TOL)
+    dense_ent = -(probs * torch.log(probs + 1e-12)).sum(-1)
+    torch.testing.assert_close(stats.value, dense_ent, rtol=2e-4, atol=2e-5)
+    with torch.no_grad():
+        _, short = block.attention(x[:, :100])
+    assert short.shape == (2, 4, 100, 100)
+    assert block_attention.ENTROPY_LAUNCHES == before + 2
+
+
+def test_attention_auto_dispatch_raises_for_a_head_dim_the_kernel_lacks(device):
+    """Auto dispatch is the JAX rule with CUDA for TPU: a head dim of 48 at
+    seq 128 goes to the kernel, which raises rather than falling back."""
+    mhsa = MultiHeadSelfAttention(192, 4).to(device).eval()
+    before = block_attention.ENTROPY_LAUNCHES
+    with torch.no_grad(), pytest.raises(ValueError, match="head dim"):
+        mhsa(torch.randn(2, 128, 192, device=device))
+    assert block_attention.ENTROPY_LAUNCHES == before

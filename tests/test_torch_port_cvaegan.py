@@ -20,7 +20,7 @@ import torch
 from cvaegan_tpu import CVAEGAN as JaxCVAEGAN
 from cvaegan_tpu.core.state import apply_eval as jax_apply_eval
 from cvaegan_tpu_torch import CVAEGAN
-from cvaegan_tpu_torch.convert import cvaegan_state_from_jax
+from cvaegan_tpu_torch.convert import state_from_jax
 from cvaegan_tpu_torch.core import config as tconfig
 from cvaegan_tpu_torch.core.state import apply_eval
 from cvaegan_tpu_torch.data.tabular import TabularDataset
@@ -95,7 +95,7 @@ def test_prepare_builds_the_jax_shapes(twins, blob_dataset):
     _, _, tree = twins
     fresh = CVAEGAN(seed=1, device="cpu")
     fresh._prepare((blob_dataset.tr_samples, blob_dataset.tr_labels))
-    cvaegan_state_from_jax(tree, fresh.state)
+    state_from_jax(tree, fresh.state)
 
 
 def test_generator_forward(twins):
