@@ -14,7 +14,9 @@ long-sequence attention stack that reaches the block-attention kernels:
      `nvcc` each, all at once;
   3. kernel against plain: each kernel's wrapper against its plain PyTorch
      version on the card, at the paths' shapes and over the head dims and
-     ragged sequence lengths the attention kernels take;
+     ragged sequence lengths the attention kernels take; at inputs of
+     scale 10 the attention kernels are held to the plain version run in
+     float64 (`float64_rule` of `kernels/block_attention.py`);
   4. slice: `generate_samples`, `generate_samples_fast`,
      `generate_qualified_samples` and `reconstruct_samples` for every
      class of the CVAE-GAN, then the RAIN-GAN's entry points and
@@ -23,7 +25,8 @@ long-sequence attention stack that reaches the block-attention kernels:
      the kernels' launch counts set to 0 just before and read just after;
   5. timing: CUDA events in alternating rounds, after warm-up, beside each
      kernel's bound, and `scaled_dot_product_attention` as the library
-     yardstick of the attention kernel;
+     yardstick of the attention kernel, with the names of the device
+     kernels it ran;
   6. breakdown: `torch.profiler` over serving calls and a block forward,
      for the device time per call, its idle share and the kernels that
      take it.
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -70,7 +74,7 @@ SERVE_ROWS = 8192
 QUALIFIED_ROWS = 300
 RECON_ROWS = 256
 # Datasheet peaks: float32 outside the tensor cores, and HBM bandwidth;
-# TF32 on the tensor cores (dense) beside them, for the later redesign.
+# TF32 on the tensor cores (dense), which bounds the attention kernels.
 PEAKS = {"H100 SXM": (67e12, 3.35e12), "H100 PCIe": (51e12, 2.0e12),
          "H100 NVL": (60e12, 3.9e12)}
 TF32_PEAKS = {"H100 SXM": 495e12, "H100 PCIe": 378e12, "H100 NVL": 417e12}
@@ -98,6 +102,23 @@ def check(ok, what: str) -> None:
     """Fail the run (unlike `assert`, also under `python -O`)."""
     if not ok:
         raise SystemExit(f"chip_smoke: {what}")
+
+
+def ptxas_report(log: str):
+    """ptxas's registers and spills per kernel of a build log; the block
+    attention instantiations are named by head dim (and "entropy" for
+    B3), the others by their mangled names."""
+    report, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            inst = re.search(r"block_attention_kernelILi(\d+)ELb([01])E", entry)
+            if inst:
+                entry = f"d{inst[1]}" + (" entropy" if inst[2] == "1" else "")
+            report[entry] = []
+        elif entry is not None and ("registers" in ln or "spill" in ln):
+            report[entry].append(ln.split("ptxas info    :")[-1].strip())
+    return {name: "; ".join(lines) for name, lines in report.items()}
 
 
 def close_enough(got, ref, rtol=RTOL, atol=ATOL):
@@ -222,10 +243,12 @@ def serve_all_classes(model, entry_points):
 
 def attention_vs_plain(torch, ba, device):
     """Both block-attention kernels against their plain versions: over
-    head dims x sequence lengths (ragged included) x bh, at T1 and T2, and
-    at inputs of scale 10, whose peaked rows would make the entropy
-    formula cancel. Returns {kernel: {case group: [max abs err, worst
-    err / tol]}}."""
+    head dims x sequence lengths (ragged included) x bh, and at T1 and T2,
+    at rtol = atol = ATTN_TOL; and at inputs of scale 10, whose peaked
+    rows would make the entropy formula cancel, by `ba.float64_rule`
+    against the plain version run in float64 (near-tie rows swing with
+    float32 rounding there; see its docstring). Returns {kernel: {case
+    group: [max abs err, worst err / limit]}}."""
     g = torch.Generator(device=device).manual_seed(1)
     cases = [("grid", bh, seq, d, 1.0) for d in ba.HEAD_DIMS
              for seq in ATTN_SEQS for bh in ATTN_BHS]
@@ -234,8 +257,7 @@ def attention_vs_plain(torch, ba, device):
               ("scale10", 8, 1024, 64, 10.0)]
     stats = {"block_attention": {}, "block_attention_with_entropy": {}}
 
-    def record(kernel, group, got, ref):
-        err, ratio = close_enough(got, ref, ATTN_TOL, ATTN_TOL)
+    def record(kernel, group, err, ratio):
         old = stats[kernel].get(group, [0.0, 0.0])
         stats[kernel][group] = [max(old[0], err), max(old[1], ratio)]
 
@@ -247,10 +269,22 @@ def attention_vs_plain(torch, ba, device):
         torch.cuda.synchronize()
         check(out.shape == out_e.shape == (bh, seq, d) and ent.shape == (bh, seq),
               f"block attention gave {tuple(out.shape)}, {tuple(ent.shape)}")
-        record("block_attention", group, out, ba.block_attention_reference(q, k, v))
         ref_out, ref_ent = ba.block_attention_with_entropy_reference(q, k, v)
-        record("block_attention_with_entropy", group, out_e, ref_out)
-        record("block_attention_with_entropy", group, ent, ref_ent)
+        if scale == 1.0:
+            for kernel, got, ref in (("block_attention", out, ref_out),
+                                     ("block_attention_with_entropy", out_e, ref_out),
+                                     ("block_attention_with_entropy", ent, ref_ent)):
+                record(kernel, group, *close_enough(got, ref, ATTN_TOL, ATTN_TOL))
+            continue
+        exact_out, exact_ent = ba.block_attention_with_entropy_reference(
+            q.double(), k.double(), v.double())
+        check(exact_out.dtype == exact_ent.dtype == torch.float64,
+              "the plain version did not run in float64")
+        for kernel, got, plain, exact in (
+                ("block_attention", out, ref_out, exact_out),
+                ("block_attention_with_entropy", out_e, ref_out, exact_out),
+                ("block_attention_with_entropy", ent, ref_ent, exact_ent)):
+            record(kernel, group, *ba.float64_rule(got, plain, exact, ATTN_TOL))
     return stats
 
 
@@ -272,16 +306,23 @@ def random_block(torch, input_dim, output_dim, generator, device):
 
 
 def attention_bound(part, bh, seq, d, entropy):
-    """Least time of one call: FLOP over the float32 rate (TF32 beside it)
-    and bytes (q, k, v read once, out and entropy written once) over HBM."""
+    """Least time of one float32-accurate call on the card: the larger of
+    QK^T and PV (4 bh seq^2 d FLOP) in three TF32 passes on the tensor
+    cores and the entropy's 2 bh seq^2 FLOP at the float32 rate (the two
+    pipes overlap), against the bytes (q, k, v read once, out and entropy
+    written once) over HBM. The bound of the same work at the float32 rate
+    outside the tensor cores stands beside it as `f32_fma_bound_ms`."""
     flop_rate, byte_rate = PEAKS[part]
-    flops = 4 * bh * seq * seq * d + (2 * bh * seq * seq if entropy else 0)
+    products = 4 * bh * seq * seq * d
+    extra = 2 * bh * seq * seq if entropy else 0
     nbytes = 4 * (4 * bh * seq * d + (bh * seq if entropy else 0))
-    ops_ms, bytes_ms = flops / flop_rate * 1e3, nbytes / byte_rate * 1e3
-    return {"flops": flops, "bytes": nbytes, "ops_bound_ms": ops_ms,
-            "bytes_bound_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+    ops_ms = max(3 * products / TF32_PEAKS[part], extra / flop_rate) * 1e3
+    bytes_ms = nbytes / byte_rate * 1e3
+    return {"flops": products + extra, "tf32_pass_flops": 3 * products,
+            "bytes": nbytes, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "tf32_ops_bound_ms": flops / TF32_PEAKS[part] * 1e3}
+            "f32_fma_bound_ms": max((products + extra) / flop_rate * 1e3, bytes_ms)}
 
 
 def main() -> int:
@@ -328,8 +369,7 @@ def main() -> int:
     for kernel, source in sources.items():
         log = _build.library_path(source).with_suffix(".log").read_text()
         emit({"phase": "build", "kernel": kernel, "seconds": seconds[source],
-              "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]})
+              "ptxas": ptxas_report(log)})
 
     # 3. kernels against plain -----------------------------------------------
     rng = np.random.default_rng(0)
@@ -351,14 +391,15 @@ def main() -> int:
     check(worst <= 1.0, f"fused_mlp4 disagrees with mlp4_reference ({worst})")
 
     attn_stats = attention_vs_plain(torch, ba, device)
-    attn_err = {}
+    attn_err = {}  # over the unit-scale groups: scale 10 has its own rule
     for kernel, groups in attn_stats.items():
-        attn_err[kernel] = max(e for e, _ in groups.values())
+        attn_err[kernel] = max(e for group, (e, _) in groups.items() if group != "scale10")
         attn_worst = max(r for _, r in groups.values())
         emit({"phase": "kernel_vs_plain", "kernel": kernel, "seqs": ATTN_SEQS,
               "head_dims": ba.HEAD_DIMS, "bhs": ATTN_BHS,
               "t1": [T1[0] * HEADS, T1[1], 64], "t2": [T2[0] * HEADS, T2[1], 64],
-              "scale10": [8, 1024, 64], "rtol": ATTN_TOL, "atol": ATTN_TOL,
+              "scale10": [8, 1024, 64], "scale10_rule": "float64_rule",
+              "rtol": ATTN_TOL, "atol": ATTN_TOL,
               "by_case": groups, "max_abs_err": attn_err[kernel],
               "worst_err_over_tol": attn_worst})
         check(attn_worst <= 1.0, f"{kernel} disagrees with its plain version "
@@ -482,7 +523,8 @@ def main() -> int:
                              "entropy_err_over_tol": ent_ratio,
                              "mean_row_entropy": float(stats.value.mean())}
         check(max(out_ratio, ent_ratio) <= 1.0,
-              f"long_seq {name}: kernel path disagrees with the dense path")
+              f"long_seq {name}: kernel path disagrees with the dense path "
+              f"(worst err / tol: output {out_ratio}, entropy {ent_ratio})")
     b2_err, b2_ratio = close_enough(b2_out, ba.block_attention_reference(*qkv_t1),
                                     ATTN_TOL, ATTN_TOL)
     check(b2_ratio <= 1.0, f"long_seq: block_attention disagrees ({b2_ratio})")
@@ -539,7 +581,10 @@ def main() -> int:
             "rounds": dict(zip(keys, rounds)),
             "b2_bound": attention_bound(part, bh, seq, 64, entropy=False),
             "b3_bound": attention_bound(part, bh, seq, 64, entropy=True),
-            "sdpa_max_abs_err_vs_plain": sdpa_err}
+            "sdpa_max_abs_err_vs_plain": sdpa_err,
+            "sdpa_device_kernels": [e[0] for e in breakdown(
+                torch, lambda: F.scaled_dot_product_attention(q4, k4, v4), times[2],
+                calls=1, top=3).get("top", [])]}
         emit({"phase": "timing", "card": card, "attention": name,
               "peaks_of": part, **attn_timing[name]})
 
@@ -569,7 +614,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "cvaegan_tpu_torch/csrc/block_attention.cu",
             "replaces": replaces, "launches": launches_,
-            "max_abs_err": attn_err[name], "shape": t1["shape"],
+            "max_abs_err": attn_err[name],
+            "scale10_err_over_limit": attn_stats[name]["scale10"][1],
+            "shape": t1["shape"],
             "ms": t1[f"{key}_ms"], "plain_ms": t1[f"{key}_plain_ms"],
             "bound_ms": bound1["bound_ms"], "bound_by": bound1["bound_by"],
             "library_ms": t1["sdpa_ms"] if library else None,

@@ -1,4 +1,5 @@
-// Blockwise (flash-style) non-causal self-attention forward, float32.
+// Blockwise (flash-style) non-causal self-attention forward, float32, on
+// Hopper's tensor cores.
 //
 //   out = softmax(q k^T * d^-0.5) v          over [bh, seq, d] tensors
 //   ent = -sum_j p_j log p_j  (per row)      only in the entropy variant
@@ -9,86 +10,289 @@
 //   * ENT = true replaces `_attn_ent_kernel` (entry
 //     `block_attention_with_entropy`), the same sweep plus the exact row
 //     entropy H = m + log l - sl / l without materialising P.
+// The TPU kernels pin a head's whole K and V in VMEM and walk the key
+// blocks of one query block in order, carrying (m, l, acc[, sl]) in
+// scratch. Here a block of 8 warps owns 128 query rows (16 per warp) and
+// streams K and V through shared memory in tiles of at most 2048 elements
+// (64 keys at d <= 32, 32 at d 64, 16 at d 128), one block per SM.
 // Head dims 16, 32, 64 and 128 are instantiated; any seq >= 1 runs.
 //
-// Numerics follow the TPU kernels: running max from -1e30, scores scaled
-// by d^-0.5 after the dot product, online softmax (m, l, acc) in float32
-// with exact FMA (no TF32, no tensor cores), out = acc / l. The entropy
-// carries sl relative to the running max, sl' = sum exp(s - m) (s - m) =
-// sl - m l, so that H = log l - sl' / l: the same formula, with the m's
-// cancelling exactly instead of in float32. (On a peaked row, s ~ 300 at
-// inputs of scale 10, m and sl / l agree to all float32 digits and their
-// difference is rounding noise of ~1e-5.)
+// Products. QK^T and PV both run on the tensor cores as
+// mma.sync.m16n8k8 with TF32 operands, in three passes for float32
+// accuracy: each operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi), rounded to nearest as cvt.rna.tf32.f32 rounds (without
+// it the unit truncates the low 13 mantissa bits), and a.b ~ hi.lo +
+// lo.hi + hi.hi, small terms first. One TF32 pass keeps ~3 decimal digits
+// and misses the JAX tests' float32 tolerance (2e-5) by an order of
+// magnitude; three stay well inside it. The unit's float32 accumulator
+// adds with truncation, so each tile's P V starts from zero and is folded
+// into the running output by a rounded fmaf: summed over all keys in the
+// accumulator, the error grew with seq, to 0.59 of the tolerance at seq
+// 8192 against 0.03 with the fold.
 //
-// Bound on an H100 SXM. Per call: 4 bh seq^2 d FLOP (QK^T and PV), plus
-// 2 bh seq^2 for the entropy's p (s - m), against 16 bh seq d bytes
-// moved (q, k, v read once, out written once). At [128, 1024, 64] that is
-// 34.4 GFLOP against 134 MB: 0.51 ms at the 67 TFLOP/s float32 rate
-// outside the tensor cores, 0.040 ms at 3.35 TB/s. The kernels are bound
-// by float32 arithmetic, and the design aims at keeping the FMA pipes fed
-// from registers and shared memory:
-//   * one block of 256 threads per (head, tile of 64 query rows); the
-//     flattened grid gives bh * ceil(seq / 64) blocks (2048 at both
-//     [128, 1024] and [16, 8192]) for the 132 SMs;
-//   * the TPU kernel pins a head's whole K and V in VMEM; a Hopper block
-//     has at most 227 KB of shared memory, so K and V stream through it in
-//     tiles of 64 keys (rows zero-filled past seq), beside the block's Q
-//     tile and a 64 x 64 tile of probabilities;
-//   * each warp owns 8 query rows and each thread a 4 x 4 tile of scores
-//     (its 4 rows x keys tx, tx + 16, tx + 32, tx + 48) and a 4 x d/16
-//     tile of the output; the 16 threads sharing a row sit in one half
-//     of a warp, so the row max is 4 shuffles and the probability tile
-//     only needs __syncwarp between writing and reading it;
-//   * l and sl are kept as per-thread partial sums (the rescale by
-//     exp(m_old - m_new) is uniform along a row) and reduced once at the
-//     end; the ragged key tail gets p = 0, the ragged query tail is
-//     zero-filled on load and not stored;
-//   * shared-memory rows are padded by 4 floats, so the float4 reads of 16
-//     key rows by a half-warp hit distinct banks.
-// Tensor cores (TF32 wgmma, with its own tolerance), cp.async double
-// buffering and larger register tiles are later work.
+// Fragments (PTX ISA, m16n8k8 .tf32; g = lane / 4, t = lane % 4):
+//   A (16 x 8)  a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)  a3 (g + 8, t + 4)
+//   B (8 x 8)   b0 (t, g)  b1 (t + 4, g)
+//   C (16 x 8)  c0 (g, 2t) c1 (g, 2t + 1) c2 (g + 8, 2t) c3 (g + 8, 2t + 1)
+// S = Q K^T leaves the scores of keys 2t and 2t + 1 in each thread. P
+// never leaves registers: PV sums over keys, so their order inside an
+// 8-key step is free, and P's accumulator c0, c1, c2, c3 serves as the A
+// operand a0, a2, a1, a3. Column t of A is then key 2t and column t + 4
+// key 2t + 1, so V's B fragment comes from key rows 2t and 2t + 1.
+//
+// Data movement. K and V arrive by 16-byte cp.async.cg into a landing
+// area; rows past seq are zero-filled (src-size 0). Their scores are then
+// 0, not -inf, so the ragged key tail is masked to p = 0 explicitly; the
+// ragged query tail is zero-filled and not stored. Each thread then
+// splits the very pieces it copied (its own copies are complete after
+// cp.async.wait_group, with no barrier) into hi and lo, once per block and
+// not once per warp, and stores them where a single 16-byte load is a
+// whole B fragment with its hi and lo: {hi, lo} of K[key][8s + t] and
+// K[key][8s + t + 4], {hi, lo} of V[2i][c] and V[2i + 1][c]. The split
+// tiles are double-buffered, so one __syncthreads per tile suffices: it
+// publishes tile i's split and ends the reads of tile i - 1's stage and
+// of the landing area; the copy of tile i + 1 is issued right after it
+// and lands while tile i is computed. Pitches (see `Smem`) and a per-lane
+// rotation of the split's stores (`store_split`) put the 8 lanes of a
+// quarter-warp on distinct bank groups. Q is split once, before the
+// key loop, and held in registers for d <= 64; at d 128 that would take
+// 128 registers, so there each warp reads and splits its Q fragments from
+// shared memory per tile.
+//
+// Softmax and entropy keep the TPU kernels' numerics: running max from
+// -1e30, the scale applied after the product, out = acc / l. Scores are
+// prescaled by d^-0.5 log2(e) so that ex2.approx gives the exponentials;
+// m, and sl below, are then in units of log2. The entropy carries sl
+// relative to the running max, sl' = sum p (s - m), rescaled by
+// alpha (sl' + (m_old - m_new) l_old), so that H = log l - sl' / l with no
+// cancellation on peaked rows (scores ~ 300 at inputs of scale 10); the
+// one conversion back to nats is the ln 2 in the final line. l and sl are
+// per-thread partial sums (the rescale is uniform along a row), reduced
+// over the 4 lanes of a row once at the end; the row max reduces over
+// those lanes per tile.
+//
+// Bound on an H100 SXM. Per call: 4 bh seq^2 d FLOP (QK^T and PV), done
+// three times over in TF32, plus 2 bh seq^2 for the entropy's p (s - m),
+// against 16 bh seq d bytes moved (q, k, v read once, out written once).
+// At [128, 1024, 64] that is 103 GFLOP of TF32 products: 0.208 ms at the
+// 495 TFLOP/s dense TF32 rate, against 0.040 ms of memory at 3.35 TB/s, so
+// the tensor cores bound it. mma.sync does not reach that rate on Hopper
+// (only wgmma does). The kernels use mma.sync all the same: wgmma takes
+// TF32 operands only K-major from shared memory, in its own swizzled
+// layout, so V would have to be transposed there and the split tiles laid
+// out for it, with warpgroup-wide products replacing the per-warp ones.
+// That is the next redesign step.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 64;      // query rows per block
-constexpr int kKeys = 64;      // keys per tile
-constexpr int kThreads = 256;  // 8 warps x 8 rows
-constexpr int kPPitch = kKeys + 4;
+constexpr int kWarps = 8;
+constexpr int kRows = 16 * kWarps;  // query rows per block
+constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInit = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float half_warp_max(float x) {
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; the low 13 bits cleared), in two integer instructions.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to ~2^-22 relative, both exact TF32 values.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
+  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
 }
 
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+// {hi(a), lo(a), hi(b), lo(b)} as stored in the split tiles.
+__device__ __forceinline__ float4 split2(float a, float b) {
+  uint32_t ah, al, bh, bl;
+  split(a, ah, al);
+  split(b, bh, bl);
+  return make_float4(__uint_as_float(ah), __uint_as_float(al), __uint_as_float(bh),
+                     __uint_as_float(bl));
 }
 
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// c += a b in three TF32 passes, the small terms first; b = {hi(b0),
+// lo(b0), hi(b1), lo(b1)} from a split tile.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float4 b) {
+  mma(c, ah, b.y, b.w);
+  mma(c, al, b.x, b.z);
+  mma(c, ah, b.x, b.z);
+}
+
+// 2^x by the special-function unit, as exp2f computes it but with
+// results below 2^-126 flushed to 0 (p that small adds nothing to l >= 1).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// Shared memory of one block, for head dim D.
+//   k4 [kKeys][KP] float4: K[key][8s + t] and K[key][8s + t + 4], split,
+//      at [key][4s + t]: one 16-byte load is a B fragment of Q K^T;
+//   v4 [kKeys / 2][VP] float4: V[2i][c] and V[2i + 1][c], split, at
+//      [i][c]: one 16-byte load is a B fragment of P V;
+// both twice (double-buffered), then the Q tile [kRows][D + 4] and the
+// landing area of the copies, K and V of one tile as [kKeys][D] each.
+// The pitches put the 8 lanes of a quarter-warp on distinct 16-byte bank
+// groups: KP = D / 2 + 4 = 4 (mod 8) for the K reads (key g, lane t), and
+// VP = D + 2 for the V reads (row 2t, column g).
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((kRows + 2 * kKeys) * (D + 4) + kRows * kPPitch);
+struct Smem {
+  // keys per tile: K and V tiles of at most 2048 elements each
+  static constexpr int kKeys = 2048 / D < 64 ? 2048 / D : 64;
+  static constexpr int KP = D / 2 + 4;
+  static constexpr int VP = D + 2;
+  static constexpr int kK4 = kKeys * KP;
+  static constexpr int kV4 = kKeys / 2 * VP;
+  static constexpr int kStage = kK4 + kV4;  // float4s
+  static constexpr int QP = D + 4;
+  static constexpr size_t bytes =
+      sizeof(float4) * 2 * kStage + sizeof(float) * (kRows * QP + 2 * kKeys * D);
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(to), "l"(src), "r"(valid ? 16 : 0));
 }
 
-// Copies rows [row0, row0 + n) of a [seq, D] matrix into a [n][D + 4]
-// shared-memory tile, zero-filling rows at or past seq.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Starts copying the Q tile (rows q0 ..) into `qs` [kRows][D + 4]; rows at
+// or past seq are zero-filled (src-size 0).
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int n, int seq) {
+__device__ __forceinline__ void load_q_async(float* qs, const float* q, int q0, int seq) {
   constexpr int kVecs = D / 4;
-  for (int idx = threadIdx.x; idx < n * kVecs; idx += kThreads) {
+#pragma unroll
+  for (int idx = threadIdx.x; idx < kRows * kVecs; idx += kThreads) {
     const int r = idx / kVecs, c = idx % kVecs;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < seq)
-      val = reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + r) * D)[c];
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + 4 * c) = val;
+    const bool valid = q0 + r < seq;
+    cp_async16(qs + r * (D + 4) + 4 * c,
+               q + static_cast<size_t>(valid ? q0 + r : 0) * D + 4 * c, valid);
   }
+}
+
+// Each thread copies, and later splits, the same pieces of a tile: K as
+// (key, depth step) pairs of two 16-byte chunks, V as (key pair, column
+// quad) pairs of two chunks, rows past seq zero-filled. `key0` is the
+// tile's first key; raw K then raw V, [kKeys][D] each.
+template <int D>
+__device__ __forceinline__ void load_kv_async(float* raw, const float* k, const float* v,
+                                              int key0, int seq) {
+  constexpr int kKeys = Smem<D>::kKeys, DS = D / 8, DQ = D / 4;
+#pragma unroll
+  for (int p = threadIdx.x; p < kKeys * DS; p += kThreads) {
+    const int r = p / DS, s = p % DS;
+    const bool valid = key0 + r < seq;
+    const float* from = k + static_cast<size_t>(valid ? key0 + r : 0) * D + 8 * s;
+    cp_async16(raw + r * D + 8 * s, from, valid);
+    cp_async16(raw + r * D + 8 * s + 4, from + 4, valid);
+  }
+  float* raw_v = raw + kKeys * D;
+#pragma unroll
+  for (int p = threadIdx.x; p < kKeys / 2 * DQ; p += kThreads) {
+    const int i = p / DQ, c = p % DQ;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool valid = key0 + 2 * i + e < seq;
+      cp_async16(raw_v + (2 * i + e) * D + 4 * c,
+                 v + static_cast<size_t>(valid ? key0 + 2 * i + e : 0) * D + 4 * c, valid);
+    }
+  }
+}
+
+// (x, y, z, w) rotated left by `rot` in 0..3, by selects.
+__device__ __forceinline__ float4 rotate(float4 a, int rot) {
+  if (rot & 2) a = make_float4(a.z, a.w, a.x, a.y);
+  if (rot & 1) a = make_float4(a.y, a.z, a.w, a.x);
+  return a;
+}
+
+// Stores split2(a[e], b[e]) at to[e] for e = 0..3. A lane starts at
+// e = rot = (lane % 8) / 2, so that the 8 lanes of a quarter-warp, whose
+// `to` come in pairs 64 bytes apart (pieces 2m and 2m + 1), store to 8
+// distinct 16-byte bank groups each time.
+__device__ __forceinline__ void store_split(float4* to, float4 a, float4 b) {
+  const int rot = (threadIdx.x & 7) >> 1;
+  a = rotate(a, rot);
+  b = rotate(b, rot);
+  to[rot] = split2(a.x, b.x);
+  to[(rot + 1) & 3] = split2(a.y, b.y);
+  to[(rot + 2) & 3] = split2(a.z, b.z);
+  to[(rot + 3) & 3] = split2(a.w, b.w);
+}
+
+// Splits the pieces this thread copied (see `load_kv_async`) from the
+// landing area into a stage of split tiles.
+template <int D>
+__device__ __forceinline__ void split_kv(float4* k4, float4* v4, const float* raw) {
+  using S = Smem<D>;
+  constexpr int kKeys = S::kKeys, DS = D / 8, DQ = D / 4;
+#pragma unroll
+  for (int p = threadIdx.x; p < kKeys * DS; p += kThreads) {
+    const int r = p / DS, s = p % DS;
+    store_split(k4 + r * S::KP + 4 * s,
+                *reinterpret_cast<const float4*>(raw + r * D + 8 * s),
+                *reinterpret_cast<const float4*>(raw + r * D + 8 * s + 4));
+  }
+  const float* raw_v = raw + kKeys * D;
+#pragma unroll
+  for (int p = threadIdx.x; p < kKeys / 2 * DQ; p += kThreads) {
+    const int i = p / DQ, c = p % DQ;
+    store_split(v4 + i * S::VP + 4 * c,
+                *reinterpret_cast<const float4*>(raw_v + 2 * i * D + 4 * c),
+                *reinterpret_cast<const float4*>(raw_v + (2 * i + 1) * D + 4 * c));
+  }
+}
+
+// The A fragment of Q for depth step s (columns 8s .. 8s + 7) of the
+// warp's 16 rows, `qw` pointing at the warp's first row.
+template <int D>
+__device__ __forceinline__ void q_fragment(const float* qw, int s, int g, int t,
+                                           uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  constexpr int P = D + 4;
+  const float x[4] = {qw[g * P + 8 * s + t], qw[(g + 8) * P + 8 * s + t],
+                      qw[g * P + 8 * s + t + 4], qw[(g + 8) * P + 8 * s + t + 4]};
+  split4(x, hi, lo);
 }
 
 template <int D, bool ENT>
@@ -96,137 +300,165 @@ __global__ void __launch_bounds__(kThreads)
 block_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        float* __restrict__ ent, int seq, int q_tiles,
-                       float scale) {
-  constexpr int P = D + 4;   // row pitch of the Q, K and V tiles
-  constexpr int C = D / 16;  // output columns per thread
+                       float scale_log2) {
+  using S = Smem<D>;
+  constexpr int kKeys = S::kKeys;
+  constexpr int DT = D / 8;      // depth steps of QK^T, column tiles of PV
+  constexpr int KT = kKeys / 8;  // key tiles of QK^T, depth steps of PV
+  constexpr bool kQInRegs = D <= 64;
+  constexpr int QR = kQInRegs ? DT : 1;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][P]
-  float* ks = qs + kRows * P;                   // [kKeys][P]
-  float* vs = ks + kKeys * P;                   // [kKeys][P]
-  float* ps = vs + kKeys * P;                   // [kRows][kPPitch]
+  float4* stages = smem4;                                       // 2 x {k4, v4}
+  float* qs = reinterpret_cast<float*>(smem4 + 2 * S::kStage);  // [kRows][D + 4]
+  float* raw = qs + kRows * S::QP;                              // K, V [kKeys][D]
 
   const int head = blockIdx.x / q_tiles;
   const int q0 = (blockIdx.x % q_tiles) * kRows;
   const size_t base = static_cast<size_t>(head) * seq * D;
-  const int lane = threadIdx.x & 31;
-  const int tx = lane & 15;
-  const int r0 = (threadIdx.x >> 5) * 8 + (lane >> 4) * 4;  // first own row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* qw = qs + warp * 16 * S::QP;
+  const int tiles = (seq + kKeys - 1) / kKeys;
 
-  load_tile<D>(qs, q + base, q0, kRows, seq);
+  load_q_async<D>(qs, q + base, q0, seq);
+  load_kv_async<D>(raw, k + base, v + base, 0, seq);
+  cp_async_commit();
 
-  float m[4], l[4], sl[4], acc[4][C];
+  // Rows g (r = 0) and g + 8 (r = 1) of the warp's 16; acc[n] holds
+  // columns 8n + 2t, 8n + 2t + 1 of both rows, as an mma accumulator.
+  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f}, sl[2] = {0.f, 0.f};
+  float acc[DT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInit;
-    l[i] = 0.f;
-    sl[i] = 0.f;
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  uint32_t qh[QR][4], ql[QR][4];
 
-  for (int k0 = 0; k0 < seq; k0 += kKeys) {
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile<D>(ks, k + base, k0, kKeys, seq);
-    load_tile<D>(vs, v + base, k0, kKeys, seq);
+  for (int tile = 0; tile < tiles; ++tile) {
+    float4* k4 = stages + (tile & 1) * S::kStage;
+    float4* v4 = k4 + S::kK4;
+    cp_async_wait_all();  // this thread's pieces of the tile have landed
+    split_kv<D>(k4, v4, raw);
+    // The split tile is complete; every warp is done with tile - 1, whose
+    // stage the next split overwrites, and every thread with the landing
+    // area, which the next copy overwrites.
     __syncthreads();
-
-    // s[i][j] = q[r0 + i] . k[k0 + tx + 16 j]
-    float s[4][4];
+    if (tile + 1 < tiles) {
+      load_kv_async<D>(raw, k + base, v + base, (tile + 1) * kKeys, seq);
+      cp_async_commit();
+    }
+    if constexpr (kQInRegs) {
+      if (tile == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; dd += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(qs + (r0 + i) * P + dd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * P + dd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
+        for (int d = 0; d < DT; ++d) q_fragment<D>(qw, d, g, t, qh[d], ql[d]);
+      }
     }
 
-    bool valid[4];
+    // s[j]: scores of keys 8j + 2t, 8j + 2t + 1 for rows g, g + 8.
+    float s[KT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) valid[j] = k0 + tx + 16 * j < seq;
-
+    for (int j = 0; j < KT; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tile_max = kNegInit;
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] *= scale;
-        if (valid[j]) tile_max = fmaxf(tile_max, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(tile_max));
-      const float alpha = expf(m[i] - m_new);
-      float p_sum = 0.f, ps_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        p_sum += p;
-        if constexpr (ENT) ps_sum = fmaf(p, s[i][j] - m_new, ps_sum);
-        ps[(r0 + i) * kPPitch + tx + 16 * j] = p;
-      }
-      // sl' rescaled to the new max: alpha (sl' + (m_old - m_new) l_old).
-      if constexpr (ENT) sl[i] = fmaf(alpha, fmaf(m[i] - m_new, l[i], sl[i]), ps_sum);
-      l[i] = fmaf(alpha, l[i], p_sum);
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-    __syncwarp();  // a warp reads back only the rows of p it wrote
-
-    // acc[i][c] += sum_key p[r0 + i][key] v[key][tx + 16 c]
-#pragma unroll 2
-    for (int key = 0; key < kKeys; key += 4) {
-      float4 p4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(ps + (r0 + i) * kPPitch + key);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        float vv[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) vv[c] = vs[(key + t) * P + tx + 16 * c];
+    for (int d = 0; d < DT; ++d) {
+      uint32_t ah[4], al[4];
+      if constexpr (kQInRegs) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float p = t == 0 ? p4[i].x : t == 1 ? p4[i].y : t == 2 ? p4[i].z : p4[i].w;
-#pragma unroll
-          for (int c = 0; c < C; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+          ah[i] = qh[d % QR][i];
+          al[i] = ql[d % QR][i];
         }
+      } else {
+        q_fragment<D>(qw, d, g, t, ah, al);
       }
+#pragma unroll
+      for (int j = 0; j < KT; ++j) mma3(s[j], ah, al, k4[(8 * j + g) * S::KP + 4 * d + t]);
+    }
+
+    const int key0 = tile * kKeys + 2 * t;
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tile_max = kNegInit;
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          s[j][2 * r + c] *= scale_log2;
+          if (key0 + 8 * j + c < seq) tile_max = fmaxf(tile_max, s[j][2 * r + c]);
+        }
+      const float m_new = fmaxf(m[r], quad_max(tile_max));
+      alpha[r] = fast_exp2(m[r] - m_new);
+      float p_sum = 0.f, ps_sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float x = s[j][2 * r + c] - m_new;
+          const float p = key0 + 8 * j + c < seq ? fast_exp2(x) : 0.f;
+          p_sum += p;
+          if constexpr (ENT) ps_sum = fmaf(p, x, ps_sum);
+          s[j][2 * r + c] = p;
+        }
+      // sl' rescaled to the new max: alpha (sl' + (m_old - m_new) l_old).
+      if constexpr (ENT) sl[r] = fmaf(alpha[r], fmaf(m[r] - m_new, l[r], sl[r]), ps_sum);
+      l[r] = fmaf(alpha[r], l[r], p_sum);
+      m[r] = m_new;
+    }
+
+    // acc = alpha acc + P V. The tensor cores add into their float32
+    // accumulator with truncation, whose bias would grow with the number
+    // of keys; so each tile's P V starts from zero and is folded into acc
+    // by a rounded fmaf, in chunks of at most 8 column tiles (32
+    // registers). Step j sums keys 8j .. 8j + 7, P's c0 c1 c2 c3 as A's
+    // a0 a2 a1 a3 (column t = key 2t, column t + 4 = key 2t + 1).
+    constexpr int NC = DT < 8 ? DT : 8;
+#pragma unroll
+    for (int n0 = 0; n0 < DT; n0 += NC) {
+      float pv[NC][4];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        uint32_t ph[4], pl[4];
+        const float a[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        split4(a, ph, pl);
+        const float4* vr = v4 + (4 * j + t) * S::VP + 8 * n0 + g;
+#pragma unroll
+        for (int n = 0; n < NC; ++n) mma3(pv[n], ph, pl, vr[8 * n]);
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[n0 + n][i] = fmaf(alpha[i / 2], acc[n0 + n][i], pv[n][i]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l_row = half_warp_sum(l[i]);
-    const float sl_row = ENT ? half_warp_sum(sl[i]) : 0.f;
-    const int row = q0 + r0 + i;
+  for (int r = 0; r < 2; ++r) {
+    const float l_row = quad_sum(l[r]);
+    const float sl_row = ENT ? quad_sum(sl[r]) : 0.f;
+    const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= seq) continue;
-    float* o = out + base + static_cast<size_t>(row) * D;
+    float* o = out + base + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < C; ++c) o[tx + 16 * c] = acc[i][c] / l_row;
-    if (ENT && tx == 0)
-      ent[static_cast<size_t>(head) * seq + row] = logf(l_row) - sl_row / l_row;
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<float2*>(o + 8 * n) =
+          make_float2(acc[n][2 * r] / l_row, acc[n][2 * r + 1] / l_row);
+    // sl_row is in units of log2: ln 2 brings it back to nats.
+    if (ENT && t == 0)
+      ent[static_cast<size_t>(head) * seq + row] = logf(l_row) - kLn2 * sl_row / l_row;
   }
 }
 
 template <int D, bool ENT>
 int launch(const float* q, const float* k, const float* v, float* out,
            float* ent, int bh, int seq, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = Smem<D>::bytes;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         block_attention_kernel<D, ENT>,
@@ -238,7 +470,7 @@ int launch(const float* q, const float* k, const float* v, float* out,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   block_attention_kernel<D, ENT><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       q, k, v, out, ent, seq, q_tiles,
-      static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
+      static_cast<float>(kLog2e / sqrt(static_cast<double>(D))));
   return static_cast<int>(cudaGetLastError());
 }
 

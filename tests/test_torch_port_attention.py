@@ -27,6 +27,17 @@ from cvaegan_tpu_torch.models.attention import MultiHeadSelfAttention
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Under several test workers torch's intra-op threads oversubscribe
+    the cores and spin; one thread keeps this module's small products
+    near their single-process time."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _qkv(seed, bh, seq, d, scale=1.0):
     rng = np.random.default_rng(seed)
     return [(scale * rng.standard_normal((bh, seq, d))).astype(np.float32)
@@ -90,8 +101,9 @@ def test_peaked_rows_entropy_differs_from_jax_kernel():
     in float32. On the CPU the port's wrapper is its dense plain version,
     so the first assertion holds that plain version to the JAX oracle; the
     port's kernel, which carries sl relative to the running max, is held
-    to it at scale 10 by `test_block_attention_with_entropy_matches_plain
-    [*-10.0]` in `tests/test_torch_port_cuda.py`."""
+    at scale 10 to that plain version run in float64 (`float64_rule`) by
+    `test_block_attention_with_entropy_matches_plain[*-10.0]` in
+    `tests/test_torch_port_cuda.py`."""
     q, k, v = _qkv(3, 4, 256, 64, scale=10.0)
     oracle = np.asarray(jba.reference_attention_entropy(q, k))
     _, ent = tba.block_attention_with_entropy(*_torch(q, k, v))
@@ -198,3 +210,156 @@ def test_wrappers_reject_what_the_kernels_cannot_run(fn):
         fn(q.clone().requires_grad_(), k, v)
     with torch.no_grad():
         fn(q.clone().requires_grad_(), k, v)
+
+
+# ------------------------------------------- numerics of the tensor-core kernel
+# The card's kernel (`csrc/block_attention.cu`) runs both products on the
+# tensor cores as TF32 in three passes: x = hi + lo with hi = tf32(x) and
+# lo = tf32(x - hi), a.b ~ hi.lo + lo.hi + hi.hi. This CPU emulation of its
+# numerics (TF32 rounding by bit arithmetic, as cvt.rna does; one key tile)
+# shows why three passes and not one.
+
+
+def _tf32(x):
+    """Round float32 to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero, keeping 10 mantissa bits (the low 13 bits cleared)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _emulated_kernel(q, k, v, passes):
+    """(out, row entropy) with both products in `passes` TF32 passes and
+    the softmax and entropy in float32, in the kernel's formulas."""
+    s = _tf32_matmul(q, k.transpose(-1, -2), passes) * q.shape[-1] ** -0.5
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1)
+    return (_tf32_matmul(p, v, passes) / l[..., None],
+            torch.log(l) - (p * (s - m)).sum(-1) / l)
+
+
+def _worst_over_tol(got, want):
+    return float(((got - want).abs() / (TOL["atol"] + TOL["rtol"] * want.abs())).max())
+
+
+def _emulation_case(d, scale):
+    """The emulated kernel in three and one passes, the plain float32
+    version and the plain version in float64, at `[4, 256, d]`."""
+    q, k, v = _torch(*_qkv(d, 4, 256, d, scale=scale))
+    exact = tba.block_attention_with_entropy_reference(q.double(), k.double(),
+                                                       v.double())
+    return ({p: _emulated_kernel(q, k, v, p) for p in (3, 1)},
+            tba.block_attention_with_entropy_reference(q, k, v), exact)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + 0.49 * one_ulp, 1.0 + 0.5 * one_ulp,
+                      -(1.0 + 0.5 * one_ulp), 3.0 + 1.51 * 2 * one_ulp])
+    want = torch.tensor([1.0, 1.0 + one_ulp, -(1.0 + one_ulp), 3.0 + 4 * one_ulp])
+    torch.testing.assert_close(_tf32(x), want, rtol=0, atol=0)
+    hi = _tf32(x)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(_tf32(x - hi)), _tf32(x - hi))
+
+
+@pytest.mark.parametrize("d", tba.HEAD_DIMS)
+def test_three_tf32_passes_keep_the_float32_tolerance(d):
+    """At unit scale three passes stay within rtol = atol = 2e-5 of the
+    plain float32 version, output and entropy; one pass misses it."""
+    emulated, plain, _ = _emulation_case(d, 1.0)
+    three = max(_worst_over_tol(g, w) for g, w in zip(emulated[3], plain))
+    one = _worst_over_tol(emulated[1][0], plain[0])
+    assert three <= 0.1, three
+    assert one > 3.0, one
+
+
+@pytest.mark.parametrize("d", tba.HEAD_DIMS)
+def test_three_tf32_passes_meet_the_float64_rule_at_scale_10(d):
+    """At inputs of scale 10 three passes meet `float64_rule`, output and
+    entropy; one pass fails it by orders of magnitude."""
+    emulated, plain, exact = _emulation_case(d, 10.0)
+    three = max(tba.float64_rule(g, p, x)[1]
+                for g, p, x in zip(emulated[3], plain, exact))
+    one = max(tba.float64_rule(g, p, x)[1]
+              for g, p, x in zip(emulated[1], plain, exact))
+    assert three <= 1.0, three
+    assert one > 50.0, one
+
+
+def test_float64_rule_accepts_plain_and_refuses_one_pass():
+    """The rule passes the plain float32 version itself (with room for the
+    factor 3 and atol) and refuses the one-pass emulation."""
+    emulated, plain, exact = _emulation_case(64, 10.0)
+    for got, x in zip(plain, exact):
+        err, ratio = tba.float64_rule(got, got, x)
+        assert err > 2e-5 and ratio < 1.0 / 3.0
+    assert all(tba.float64_rule(g, p, x)[1] > 1.0
+               for g, p, x in zip(emulated[1], plain, exact))
+    err, ratio = tba.float64_rule(plain[0] + 1.0, plain[0], exact[0])
+    assert err > 1.0 and ratio > 1.0
+
+
+def test_plain_versions_take_float64():
+    """`float64_rule`'s exact side: the plain versions run float64 inputs in
+    float64 (the wrappers' checks are not on their path)."""
+    q, k, v = (t.double() for t in _torch(*_qkv(11, 2, 40, 16)))
+    out, ent = tba.block_attention_with_entropy_reference(q, k, v)
+    assert out.dtype == ent.dtype == torch.float64
+    assert tba.block_attention_reference(q, k, v).dtype == torch.float64
+    torch.testing.assert_close(out, tba.reference_attention(q, k, v), rtol=0, atol=0)
+
+
+def _online_emulated_kernel(q, k, v, drop_alpha=False):
+    """(out, row entropy) as the card's kernel sweeps the keys: tiles of
+    min(64, 2048 / d) keys (the last one ragged), both products in three
+    TF32 passes, scores prescaled by d^-0.5 log2(e) and exponentials in
+    base 2, the running max from -1e30, each tile's P V folded into the
+    output by alpha, and the entropy carried relative to the running max,
+    sl' = alpha (sl' + (m_old - m_new) l_old) + sum p (s - m_new), with
+    H = log l - ln 2 sl' / l. `drop_alpha` leaves the output unrescaled."""
+    bh, seq, d = q.shape
+    keys = min(64, 2048 // d)
+    scale_log2 = d ** -0.5 * np.log2(np.e)
+    m = torch.full((bh, seq), -1e30)
+    l, sl, acc = torch.zeros(bh, seq), torch.zeros(bh, seq), torch.zeros(bh, seq, d)
+    for k0 in range(0, seq, keys):
+        kt, vt = k[:, k0:k0 + keys], v[:, k0:k0 + keys]
+        s = _tf32_matmul(q, kt.transpose(-1, -2), 3) * scale_log2
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        x = s - m_new[..., None]
+        p = torch.exp2(x)
+        sl = alpha * (sl + (m - m_new) * l) + (p * x).sum(-1)
+        l = alpha * l + p.sum(-1)
+        pv = _tf32_matmul(p, vt, 3)
+        acc = acc + pv if drop_alpha else alpha[..., None] * acc + pv
+        m = m_new
+    return acc / l[..., None], torch.log(l) - np.log(2.0) * sl / l
+
+
+@pytest.mark.parametrize("d", tba.HEAD_DIMS)
+@pytest.mark.parametrize("scale", [1.0, 10.0])
+def test_online_three_pass_sweep_meets_the_checks(d, scale):
+    """The kernel's tiled sweep (ragged seq 200: the last tile is short at
+    every head dim) holds the card's checks: rtol = atol = 2e-5 against the
+    plain float32 version at unit scale, `float64_rule` at scale 10. With
+    the output's alpha rescale dropped it fails them."""
+    q, k, v = _torch(*_qkv(d + 1, 4, 200, d, scale=scale))
+    plain = tba.block_attention_with_entropy_reference(q, k, v)
+    exact = tba.block_attention_with_entropy_reference(q.double(), k.double(),
+                                                       v.double())
+
+    def worst(got):
+        if scale == 1.0:
+            return max(_worst_over_tol(g, p) for g, p in zip(got, plain))
+        return max(tba.float64_rule(g, p, x)[1] for g, p, x in zip(got, plain, exact))
+
+    assert worst(_online_emulated_kernel(q, k, v)) <= 1.0
+    assert worst(_online_emulated_kernel(q, k, v, drop_alpha=True)) > 10.0

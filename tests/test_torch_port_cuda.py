@@ -149,7 +149,9 @@ def test_block_attention_matches_plain(device, d):
 @pytest.mark.parametrize("scale", (1.0, 10.0))
 @pytest.mark.parametrize("d", block_attention.HEAD_DIMS)
 def test_block_attention_with_entropy_matches_plain(device, d, scale):
-    """Scale 10 makes peaked rows, where m + log l - sl / l would cancel."""
+    """Scale 10 makes peaked rows, where m + log l - sl / l would cancel.
+    There near-tie rows swing with float32 rounding, so the kernel is held
+    to the plain version run in float64 by `float64_rule`."""
     for seq in ATTN_SEQS:
         q, k, v = _qkv(4, seq, d, device, seed=seq, scale=scale)
         before = block_attention.ENTROPY_LAUNCHES
@@ -158,8 +160,17 @@ def test_block_attention_with_entropy_matches_plain(device, d, scale):
         assert block_attention.ENTROPY_LAUNCHES == before + 1
         want_out, want_ent = block_attention.block_attention_with_entropy_reference(q, k, v)
         assert ent.shape == (4, seq)
-        torch.testing.assert_close(out, want_out, **ATTN_TOL)
-        torch.testing.assert_close(ent, want_ent, **ATTN_TOL)
+        if scale == 1.0:
+            torch.testing.assert_close(out, want_out, **ATTN_TOL)
+            torch.testing.assert_close(ent, want_ent, **ATTN_TOL)
+            continue
+        exact = block_attention.block_attention_with_entropy_reference(
+            q.double(), k.double(), v.double())
+        for got, plain, want in zip((out, ent), (want_out, want_ent), exact):
+            assert want.dtype == torch.float64
+            err, ratio = block_attention.float64_rule(got, plain, want,
+                                                      ATTN_TOL["atol"])
+            assert ratio <= 1.0, (seq, err, ratio)
 
 
 def test_block_attention_rejects_what_it_cannot_run(device):
