@@ -14,9 +14,10 @@ long-sequence attention stack that reaches the block-attention kernels:
      `nvcc` each, all at once;
   3. kernel against plain: each kernel's wrapper against its plain PyTorch
      version on the card, at the paths' shapes and over the head dims and
-     ragged sequence lengths the attention kernels take; at inputs of
-     scale 10 the attention kernels are held to the plain version run in
-     float64 (`float64_rule` of `kernels/block_attention.py`);
+     ragged sequence lengths the attention kernels take; both fused MLP
+     kernels (tensor-core and SIMT) are held to the plain version run in
+     float64, and so are the attention kernels at inputs of scale 10
+     (`float64_rule` of `kernels/block_attention.py`);
   4. slice: `generate_samples`, `generate_samples_fast`,
      `generate_qualified_samples` and `reconstruct_samples` for every
      class of the CVAE-GAN, then the RAIN-GAN's entry points and
@@ -24,9 +25,11 @@ long-sequence attention stack that reaches the block-attention kernels:
      blocks at sequences of 1024 and 8192 (`long_seq`); each path runs with
      the kernels' launch counts set to 0 just before and read just after;
   5. timing: CUDA events in alternating rounds, after warm-up, beside each
-     kernel's bound, and `scaled_dot_product_attention` as the library
-     yardstick of the attention kernel, with the names of the device
-     kernels it ran;
+     kernel's bound: the two fused MLP kernels and the plain version at
+     the serving shape in the same rounds, the attention kernels at T1 and
+     T2 with `scaled_dot_product_attention` as the library yardstick of B2
+     (and the names of the device kernels it ran), and B3 at the d 32
+     launch of the long-sequence path;
   6. breakdown: `torch.profiler` over serving calls and a block forward,
      for the device time per call, its idle share and the kernels that
      take it.
@@ -40,6 +43,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -50,8 +54,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# Kernel vs its plain version: both accumulate in float32 (TF32 off), in
-# different orders, so they agree to float32 rounding.
+# Fused MLP tolerance. The tensor-core kernel (three TF32 passes) rounds
+# differently from the plain float32 version, which is itself about this
+# far from float64, so it is held to the plain version run in float64;
+# the SIMT kernel sums in float32 FMA in k order, as the plain version's
+# GEMMs do, and is held to the plain float32 version.
 RTOL, ATOL = 1e-5, 1e-6
 # Block attention vs its plain version: the JAX tests' tolerance
 # (`tests/test_kernels.py:99-100,152-155`): float32 sums of seq terms in
@@ -74,10 +81,14 @@ SERVE_ROWS = 8192
 QUALIFIED_ROWS = 300
 RECON_ROWS = 256
 # Datasheet peaks: float32 outside the tensor cores, and HBM bandwidth;
-# TF32 on the tensor cores (dense), which bounds the attention kernels.
+# TF32 on the tensor cores (dense), which bounds the kernels that use them.
 PEAKS = {"H100 SXM": (67e12, 3.35e12), "H100 PCIe": (51e12, 2.0e12),
          "H100 NVL": (60e12, 3.9e12)}
 TF32_PEAKS = {"H100 SXM": 495e12, "H100 PCIe": 378e12, "H100 NVL": 417e12}
+# Device cycles (~20 ms) that `cuda_ms` holds the device for while the host
+# queues a round of calls: longer than the host takes to launch 50 calls of
+# the plain fused MLP version (8 kernels each).
+HOLD_CYCLES = 40_000_000
 
 
 def emit(obj) -> None:
@@ -107,7 +118,7 @@ def check(ok, what: str) -> None:
 def ptxas_report(log: str):
     """ptxas's registers and spills per kernel of a build log; the block
     attention instantiations are named by head dim (and "entropy" for
-    B3), the others by their mangled names."""
+    B3), the fused MLP kernels "tensor_core" and "simt <rows>"."""
     report, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -115,6 +126,10 @@ def ptxas_report(log: str):
             inst = re.search(r"block_attention_kernelILi(\d+)ELb([01])E", entry)
             if inst:
                 entry = f"d{inst[1]}" + (" entropy" if inst[2] == "1" else "")
+            elif "tc_kernel" in entry:
+                entry = "tensor_core"
+            elif inst := re.search(r"simt_kernelILi(\d+)E", entry):
+                entry = f"simt {inst[1]}"
             report[entry] = []
         elif entry is not None and ("registers" in ln or "spill" in ln):
             report[entry].append(ln.split("ptxas info    :")[-1].strip())
@@ -129,9 +144,13 @@ def close_enough(got, ref, rtol=RTOL, atol=ATOL):
 
 
 def cuda_ms(torch, fns, iters: int = 100, reps: int = 6, warmup: int = 10):
-    """Each function's mean time over `iters` calls, in ms, timed with CUDA
-    events in `reps` rounds in which the functions take turns (a, b, b, a,
-    ...). Returns (the median of each, every round's times of each)."""
+    """Each function's mean device time over `iters` calls, in ms, timed
+    with CUDA events in `reps` rounds in which the functions take turns (a,
+    b, b, a, ...). Each round is queued behind a spin kernel that holds the
+    device for HOLD_CYCLES, so that the calls run back to back whatever the
+    host takes to launch them (a call of B1 takes less device time than its
+    Python launch). Returns (the median of each, every round's times of
+    each)."""
     for fn in fns:
         for _ in range(warmup):
             fn()
@@ -140,6 +159,7 @@ def cuda_ms(torch, fns, iters: int = 100, reps: int = 6, warmup: int = 10):
         for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
             start.record()
             for _ in range(iters):
                 fns[i]()
@@ -190,6 +210,51 @@ def breakdown(torch, fn, call_ms: float, calls: int = 10, top: int = 6):
             "device_idle_share": 1.0 - device_ms / call_ms,
             "top": [[e.key[:60], e.self_device_time_total / 1e3 / calls, e.count / calls]
                     for e in on_device[:top]]}
+
+
+def fused_counts(fused_mlp):
+    return {"tensor_core": fused_mlp.TC_LAUNCHES, "simt": fused_mlp.SIMT_LAUNCHES,
+            "total": fused_mlp.LAUNCHES}
+
+
+def zero_counts(fused_mlp, ba):
+    fused_mlp.TC_LAUNCHES = fused_mlp.SIMT_LAUNCHES = fused_mlp.LAUNCHES = 0
+    ba.LAUNCHES = ba.ENTROPY_LAUNCHES = 0
+
+
+def mlp_vs_float64(torch, fused_mlp, rng, device):
+    """Both fused MLP kernels (the tensor-core kernel through `fused_mlp4`,
+    which the serving widths take, and the SIMT kernel through the private
+    launch) over KERNEL_NS x FINALS: each one's distance from the plain
+    version in float64 and from the plain float32 version, and the plain
+    float32 version's own distance from float64."""
+    ws, bs = random_mlp(torch, rng, device)
+    ws64, bs64 = [w.double() for w in ws], [b.double() for b in bs]
+    check(fused_mlp.kernel_variant(WIDTHS) == "tensor_core",
+          "the serving widths do not take the tensor-core kernel")
+    stats = {v: {"max_abs_err": 0.0, "err_over_tol": 0.0, "err_over_tol_vs_plain_f32": 0.0}
+             for v in ("tensor_core", "simt")}
+    plain_worst = 0.0
+    for n in KERNEL_NS:
+        x = torch.tensor(rng.standard_normal((n, WIDTHS[0]), dtype=np.float32),
+                         device=device)
+        for final in FINALS:
+            exact = fused_mlp.mlp4_reference(x.double(), ws64, bs64, final=final)
+            plain = fused_mlp.mlp4_reference(x, ws, bs, final=final)
+            check(exact.dtype == torch.float64, "the plain version did not run in float64")
+            plain_worst = max(plain_worst, close_enough(plain.double(), exact)[1])
+            for variant, got in (("tensor_core", fused_mlp.fused_mlp4(x, ws, bs, final=final)),
+                                 ("simt", fused_mlp._launch("simt", x, ws, bs, final))):
+                torch.cuda.synchronize()
+                check(got.shape == (n, WIDTHS[-1]), f"fused_mlp4 ({variant}) gave shape "
+                      f"{tuple(got.shape)}")
+                err, ratio = close_enough(got.double(), exact)
+                st = stats[variant]
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                st["err_over_tol"] = max(st["err_over_tol"], ratio)
+                st["err_over_tol_vs_plain_f32"] = max(
+                    st["err_over_tol_vs_plain_f32"], close_enough(got, plain)[1])
+    return stats, plain_worst
 
 
 def random_mlp(torch, rng, device):
@@ -325,6 +390,26 @@ def attention_bound(part, bh, seq, d, entropy):
             "f32_fma_bound_ms": max((products + extra) / flop_rate * 1e3, bytes_ms)}
 
 
+def mlp_bound(part, x, weights, biases):
+    """Least time of one float32-accurate call of the fused MLP: its
+    products (2 n sum(K N) FLOP) in three TF32 passes on the tensor cores,
+    against the bytes (x, weights and biases read once, the output written
+    once) over HBM; the same work at the float32 rate outside the tensor
+    cores stands beside it as `f32_fma_bound_ms`."""
+    flop_rate, byte_rate = PEAKS[part]
+    rows = x.shape[0]
+    flops = 2 * rows * sum(w.numel() for w in weights)
+    nbytes = 4 * (x.numel() + sum(w.numel() for w in weights)
+                  + sum(b.numel() for b in biases) + rows * weights[-1].shape[1])
+    ops_ms = 3 * flops / TF32_PEAKS[part] * 1e3
+    bytes_ms = nbytes / byte_rate * 1e3
+    return {"flops": flops, "tf32_pass_flops": 3 * flops, "bytes": nbytes,
+            "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "f32_fma_bound_ms": max(flops / flop_rate * 1e3, bytes_ms)}
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -347,7 +432,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi("name,power.limit")
-    part, (flop_rate, byte_rate) = peaks_for(card)
+    part, _ = peaks_for(card)
     emit({"phase": "environment", "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "card": card, "device_count": torch.cuda.device_count()})
@@ -373,22 +458,16 @@ def main() -> int:
 
     # 3. kernels against plain -----------------------------------------------
     rng = np.random.default_rng(0)
-    ws, bs = random_mlp(torch, rng, device)
-    max_err, worst = 0.0, 0.0
-    for n in KERNEL_NS:
-        x = torch.tensor(rng.standard_normal((n, WIDTHS[0]), dtype=np.float32),
-                         device=device)
-        for final in FINALS:
-            got = fused_mlp.fused_mlp4(x, ws, bs, final=final)
-            ref = fused_mlp.mlp4_reference(x, ws, bs, final=final)
-            torch.cuda.synchronize()
-            check(got.shape == (n, WIDTHS[-1]), f"fused_mlp4 gave shape {tuple(got.shape)}")
-            err, ratio = close_enough(got, ref)
-            max_err, worst = max(max_err, err), max(worst, ratio)
+    mlp_stats, mlp_plain_worst = mlp_vs_float64(torch, fused_mlp, rng, device)
     emit({"phase": "kernel_vs_plain", "kernel": "fused_mlp4", "ns": KERNEL_NS,
-          "finals": FINALS, "rtol": RTOL, "atol": ATOL, "max_abs_err": max_err,
-          "worst_err_over_tol": worst})
-    check(worst <= 1.0, f"fused_mlp4 disagrees with mlp4_reference ({worst})")
+          "finals": FINALS, "rtol": RTOL, "atol": ATOL,
+          "gated": {"tensor_core": "float64", "simt": "plain float32"},
+          "by_variant": mlp_stats, "plain_f32_err_over_tol": mlp_plain_worst})
+    tc_worst = mlp_stats["tensor_core"]["err_over_tol"]
+    simt_worst = mlp_stats["simt"]["err_over_tol_vs_plain_f32"]
+    check(tc_worst <= 1.0, "fused_mlp4 (tensor_core) disagrees with mlp4_reference "
+          f"in float64 ({tc_worst})")
+    check(simt_worst <= 1.0, f"fused_mlp4 (simt) disagrees with mlp4_reference ({simt_worst})")
 
     attn_stats = attention_vs_plain(torch, ba, device)
     attn_err = {}  # over the unit-scale groups: scale 10 has its own rule
@@ -417,15 +496,16 @@ def main() -> int:
                              device=device)
     apply_train(gen, z_bn, torch.arange(512, device=device) % CLASSES)
 
-    fused_mlp.LAUNCHES = ba.LAUNCHES = ba.ENTROPY_LAUNCHES = 0
+    zero_counts(fused_mlp, ba)
     qualified = serve_all_classes(
         model, (model.generate_samples, model.generate_samples_fast))
     recon = model.reconstruct_samples(x_np[:RECON_ROWS], y_np[:RECON_ROWS])
     torch.cuda.synchronize()
-    launches = fused_mlp.LAUNCHES
+    launches = fused_counts(fused_mlp)
     attn_launches = (ba.LAUNCHES, ba.ENTROPY_LAUNCHES)
 
-    check(launches == CLASSES, f"fused_mlp4 launched {launches} times on the path")
+    check(launches == {"tensor_core": CLASSES, "simt": 0, "total": CLASSES},
+          f"fused_mlp4 launches on the path: {launches}")
     check(attn_launches == (0, 0), f"attention kernels launched {attn_launches} "
           "times on the CVAE-GAN path")
     check(recon.shape == (RECON_ROWS, FEATURES) and np.isfinite(recon).all(),
@@ -438,20 +518,25 @@ def main() -> int:
     onehot = one_hot(labels, CLASSES)
     with torch.no_grad():
         fast = fused_mlp.fast_generator_forward(gen, z, onehot)
-    module_out, _ = apply_eval(gen, z, labels)
-    slice_err, slice_ratio = close_enough(fast, module_out)
+    # The module's eval forward on a float64 copy of the generator.
+    module_out, _ = apply_eval(copy.deepcopy(gen).double(), z.double(), labels)
+    module_f32, _ = apply_eval(gen, z, labels)
+    check(module_out.dtype == torch.float64, "the module did not run in float64")
+    slice_err, slice_ratio = close_enough(fast.double(), module_out)
     emit({"phase": "slice", "model": "cvae_gan", "features": FEATURES,
           "classes": CLASSES, "rows_per_call": SERVE_ROWS,
           "fused_launches": launches, "qualified_rows": yields,
           "recon_shape": list(recon.shape),
           "fused_vs_module_max_abs_err": slice_err,
-          "fused_vs_module_err_over_tol": slice_ratio})
+          "fused_vs_module_err_over_tol": slice_ratio,
+          "module_f32_err_over_tol": close_enough(module_f32.double(), module_out)[1],
+          "fused_vs_module_f32_err_over_tol": close_enough(fast, module_f32)[1]})
     check(slice_ratio <= 1.0, "fused generator path disagrees with the module")
 
     # 4b. slice: RAIN-GAN (singleton sequences: the dense attention branch) --
     rain = RAIN_GAN(seed=0, device="cuda")
     rain._prepare((x_np, y_np))
-    fused_mlp.LAUNCHES = ba.LAUNCHES = ba.ENTROPY_LAUNCHES = 0
+    zero_counts(fused_mlp, ba)
     rain_qualified = serve_all_classes(rain, (rain.generate_samples,))
     rain_recon = rain.reconstruct_samples(x_np[:RECON_ROWS], y_np[:RECON_ROWS])
     attention = rain.visualize_attention(x_np[:RECON_ROWS], y_np[:RECON_ROWS])
@@ -489,7 +574,7 @@ def main() -> int:
                             device=device) for name, blk, shape in runs}
     qkv_t1 = [torch.randn(T1[0] * HEADS, T1[1], 64, generator=gd, device=device)
               for _ in range(3)]
-    fused_mlp.LAUNCHES = ba.LAUNCHES = ba.ENTROPY_LAUNCHES = 0
+    zero_counts(fused_mlp, ba)
     kernel_outs = {}
     with torch.no_grad():
         for name, blk, _ in runs:
@@ -534,26 +619,25 @@ def main() -> int:
           "block_attention_t1_max_abs_err": b2_err})
 
     # 5. timing --------------------------------------------------------------
+    # The tensor-core kernel, the SIMT kernel (its private launch) and the
+    # plain version at the serving shape, in the same alternating rounds.
     with torch.no_grad():
         weights, biases = fused_mlp.generator_fast_params(gen)
         x_serve = torch.cat([z, onehot], dim=-1)
-        (kernel_ms, plain_ms), rounds = cuda_ms(torch, [
+        (kernel_ms, simt_ms, plain_ms), rounds = cuda_ms(torch, [
             lambda: fused_mlp.fused_mlp4(x_serve, weights, biases),
-            lambda: fused_mlp.mlp4_reference(x_serve, weights, biases)])
-    rows = x_serve.shape[0]
-    flops = 2 * rows * sum(w.numel() for w in weights)
-    nbytes = 4 * (x_serve.numel() + sum(w.numel() for w in weights)
-                  + sum(b.numel() for b in biases) + rows * weights[-1].shape[1])
-    ops_ms, bytes_ms = flops / flop_rate * 1e3, nbytes / byte_rate * 1e3
+            lambda: fused_mlp._launch("simt", x_serve, weights, biases, "sigmoid"),
+            lambda: fused_mlp.mlp4_reference(x_serve, weights, biases)], iters=50)
+    b1_bound = mlp_bound(part, x_serve, weights, biases)
     gen_rate, fast_rate, rain_rate = samples_per_s(torch, [
         lambda: model.generate_samples(0, SERVE_ROWS),
         lambda: model.generate_samples_fast(0, SERVE_ROWS),
         lambda: rain.generate_samples(0, SERVE_ROWS)], SERVE_ROWS)
     emit({"phase": "timing", "card": card, "rows": SERVE_ROWS,
-          "fused_mlp4_ms": kernel_ms, "mlp4_reference_ms": plain_ms,
-          "fused_mlp4_ms_rounds": rounds[0], "mlp4_reference_ms_rounds": rounds[1],
-          "flops": flops, "bytes": nbytes, "peaks_of": part,
-          "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+          "x": list(x_serve.shape), "fused_mlp4_ms": kernel_ms,
+          "fused_mlp4_simt_ms": simt_ms, "mlp4_reference_ms": plain_ms,
+          "fused_mlp4_ms_rounds": rounds[0], "fused_mlp4_simt_ms_rounds": rounds[1],
+          "mlp4_reference_ms_rounds": rounds[2], "peaks_of": part, "b1_bound": b1_bound,
           "generate_samples_per_s": gen_rate,
           "generate_samples_fast_per_s": fast_rate,
           "rain_gan_generate_samples_per_s": rain_rate})
@@ -587,6 +671,21 @@ def main() -> int:
                 calls=1, top=3).get("top", [])]}
         emit({"phase": "timing", "card": card, "attention": name,
               "peaks_of": part, **attn_timing[name]})
+
+    # B3 at the long-sequence path's d 32 launch (the 128-wide block's 4
+    # heads of d 32 at x [32, 1024, 128]).
+    bh32 = 32 * HEADS
+    q, k, v = (torch.randn(bh32, 1024, 32, generator=gd, device=device) for _ in range(3))
+    with torch.no_grad():
+        (b3_32_ms, b3_32_plain_ms), rounds = cuda_ms(torch, [
+            lambda: ba.block_attention_with_entropy(q, k, v),
+            lambda: ba.block_attention_with_entropy_reference(q, k, v)],
+            iters=20, reps=6, warmup=3)
+    b3_d32 = {"shape": [bh32, 1024, 32], "ms": b3_32_ms, "plain_ms": b3_32_plain_ms,
+              "rounds": {"b3_ms": rounds[0], "b3_plain_ms": rounds[1]},
+              "bound": attention_bound(part, bh32, 1024, 32, entropy=True)}
+    emit({"phase": "timing", "card": card, "attention": "d32_b3", "peaks_of": part,
+          **b3_d32})
 
     # 6. breakdown -----------------------------------------------------------
     for name, fn, rate in (("generate_samples", model.generate_samples, gen_rate),
@@ -624,20 +723,27 @@ def main() -> int:
                    "plain_ms": t2[f"{key}_plain_ms"], "bound_ms": bound2["bound_ms"],
                    "library_ms": t2["sdpa_ms"] if library else None}}
 
+    b3_entry = attention_entry("block_attention_with_entropy",
+                               "cvaegan_tpu/kernels/block_attention.py:56",
+                               long_launches[2], entropy=True, library=False)
+    b3_entry["d32"] = {"shape": b3_d32["shape"], "ms": b3_d32["ms"],
+                       "plain_ms": b3_d32["plain_ms"],
+                       "bound_ms": b3_d32["bound"]["bound_ms"], "library_ms": None}
     emit({"kernels": [
         {"name": "fused_mlp4", "route": "cuda",
          "source": "cvaegan_tpu_torch/csrc/fused_mlp4.cu",
          "replaces": "cvaegan_tpu/kernels/fused_mlp.py:44",
-         "launches": launches, "max_abs_err": max_err,
-         "ms": kernel_ms, "plain_ms": plain_ms,
-         "bound_ms": max(ops_ms, bytes_ms),
-         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-         "library_ms": None},
+         "launches": launches["total"], "launches_by_variant": launches,
+         "max_abs_err": mlp_stats["tensor_core"]["max_abs_err"],
+         "err_over_tol_f64": mlp_stats["tensor_core"]["err_over_tol"],
+         "plain_f32_err_over_tol_f64": mlp_plain_worst,
+         "err_over_tol_vs_plain_f32": mlp_stats["tensor_core"]["err_over_tol_vs_plain_f32"],
+         "shape": list(x_serve.shape), "ms": kernel_ms, "plain_ms": plain_ms,
+         "simt_ms": simt_ms, "bound_ms": b1_bound["bound_ms"],
+         "bound_by": b1_bound["bound_by"], "library_ms": None},
         attention_entry("block_attention", "cvaegan_tpu/kernels/block_attention.py:30",
                         long_launches[1], entropy=False, library=True),
-        attention_entry("block_attention_with_entropy",
-                        "cvaegan_tpu/kernels/block_attention.py:56",
-                        long_launches[2], entropy=True, library=False),
+        b3_entry,
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

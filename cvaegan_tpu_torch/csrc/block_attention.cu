@@ -30,10 +30,8 @@
 // accumulator, the error grew with seq, to 0.59 of the tolerance at seq
 // 8192 against 0.03 with the fold.
 //
-// Fragments (PTX ISA, m16n8k8 .tf32; g = lane / 4, t = lane % 4):
-//   A (16 x 8)  a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)  a3 (g + 8, t + 4)
-//   B (8 x 8)   b0 (t, g)  b1 (t + 4, g)
-//   C (16 x 8)  c0 (g, 2t) c1 (g, 2t + 1) c2 (g + 8, 2t) c3 (g + 8, 2t + 1)
+// The split, the products and the fragment layouts (g = lane / 4,
+// t = lane % 4) are in `tf32x3.cuh`, shared with `fused_mlp4.cu`.
 // S = Q K^T leaves the scores of keys 2t and 2t + 1 in each thread. P
 // never leaves registers: PV sums over keys, so their order inside an
 // 8-key step is free, and P's accumulator c0, c1, c2, c3 serves as the A
@@ -47,8 +45,8 @@
 // splits the very pieces it copied (its own copies are complete after
 // cp.async.wait_group, with no barrier) into hi and lo, once per block and
 // not once per warp, and stores them where a single 16-byte load is a
-// whole B fragment with its hi and lo: {hi, lo} of K[key][8s + t] and
-// K[key][8s + t + 4], {hi, lo} of V[2i][c] and V[2i + 1][c]. The split
+// whole B fragment with its hi and lo (`split2`): K[key][8s + t] and
+// K[key][8s + t + 4], V[2i][c] and V[2i + 1][c]. The split
 // tiles are double-buffered, so one __syncthreads per tile suffices: it
 // publishes tile i's split and ends the reads of tile i - 1's stage and
 // of the landing area; the copy of tile i + 1 is issued right after it
@@ -86,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -95,51 +95,6 @@ constexpr float kNegInit = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero; the low 13 bits cleared), in two integer instructions.
-__device__ __forceinline__ uint32_t tf32_bits(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to ~2^-22 relative, both exact TF32 values.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_bits(x);
-  lo = tf32_bits(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
-}
-
-// {hi(a), lo(a), hi(b), lo(b)} as stored in the split tiles.
-__device__ __forceinline__ float4 split2(float a, float b) {
-  uint32_t ah, al, bh, bl;
-  split(a, ah, al);
-  split(b, bh, bl);
-  return make_float4(__uint_as_float(ah), __uint_as_float(al), __uint_as_float(bh),
-                     __uint_as_float(bl));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    float b0, float b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
-        "r"(__float_as_uint(b1)));
-}
-
-// c += a b in three TF32 passes, the small terms first; b = {hi(b0),
-// lo(b0), hi(b1), lo(b1)} from a split tile.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float4 b) {
-  mma(c, ah, b.y, b.w);
-  mma(c, al, b.x, b.z);
-  mma(c, ah, b.x, b.z);
-}
 
 // 2^x by the special-function unit, as exp2f computes it but with
 // results below 2^-126 flushed to 0 (p that small adds nothing to l >= 1).
@@ -182,20 +137,6 @@ struct Smem {
   static constexpr size_t bytes =
       sizeof(float4) * 2 * kStage + sizeof(float) * (kRows * QP + 2 * kKeys * D);
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(to), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
 
 // Starts copying the Q tile (rows q0 ..) into `qs` [kRows][D + 4]; rows at
 // or past seq are zero-filled (src-size 0).

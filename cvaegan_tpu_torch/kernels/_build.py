@@ -3,7 +3,8 @@
 Each source under `cvaegan_tpu_torch/csrc/` exposes a plain C interface.
 At first use it is compiled with `nvcc` for `sm_90a` into
 `cvaegan_tpu_torch/_build/` (listed in `.gitignore`), named by a hash of
-the source and flags so that an edited source is rebuilt, and loaded with
+the source, the shared headers (`csrc/*.cuh`) and the flags so that an
+edited source or header is rebuilt, and loaded with
 `ctypes`. Nothing here runs at import time.
 """
 
@@ -32,9 +33,14 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> pathlib.Path:
-    """Where the library built from `csrc/<source>` lives."""
+    """Where the library built from `csrc/<source>` lives: named by a hash
+    of the source, every header under `csrc/` and the flags, so that an
+    edited header rebuilds every source."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -7,11 +7,14 @@ that has no JAX they run without the repository's `conftest.py`:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
 `chip_smoke.py` holds the same kernels to the same plain versions at the
-serving shapes; these add the other layer widths the fused MLP kernel
-takes at run time (the hidden sizes grow with the input width), its
-shared-memory limits, the block-attention kernels over every head dim and
-ragged sequence lengths, and the wrappers' launch checks.
+serving shapes; these add the other layer widths the fused MLP kernels
+take at run time (the hidden sizes grow with the input width), which of
+its two kernels each width takes, its shared-memory limits, the
+block-attention kernels over every head dim and ragged sequence lengths,
+and the wrappers' launch checks.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -31,10 +34,11 @@ pytestmark = pytest.mark.cuda
 
 FINALS = ("sigmoid", "tanh", "none")
 NS = (1, 7, 100, 511, 513, 4096)
-# Input widths and the shared-memory path each one takes: 5 fits 32 rows
-# in 48 KB of static shared memory, 133 (the serving width) needs dynamic
-# shared memory for 32 rows, 1100 only fits 16 rows, 2000 only 8.
+# Input widths and the kernel each one takes: 5 and 133 (the serving
+# width) the tensor-core kernel; 1100 (hidden layers 1100 wide) the SIMT
+# kernel at 16 rows per block, 2000 at 8.
 IN_WIDTHS = (5, 133, 1100, 2000)
+VARIANTS = {5: "tensor_core", 133: "tensor_core", 1100: "simt", 2000: "simt"}
 OUT = 30
 
 
@@ -48,8 +52,8 @@ def device():
     torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def _mlp(d0, device, seed=0):
-    dims = (d0, *hidden_sizes(d0), OUT)
+def _mlp(d0, device, seed=0, dims=None):
+    dims = dims or (d0, *hidden_sizes(d0), OUT)
     rng = np.random.default_rng(seed)
     ws = [rng.standard_normal((dims[i], dims[i + 1])) / np.sqrt(dims[i])
           for i in range(4)]
@@ -59,29 +63,109 @@ def _mlp(d0, device, seed=0):
 
 
 def _tolerance(d0):
-    # Both sides accumulate in float32 (TF32 off), in different orders; the
-    # rounding of a sum of K unit-scale terms grows like sqrt(K), so the
-    # absolute tolerance of the serving widths (K <= 256) is scaled by
-    # sqrt(K / 256) for the wider layers.
+    # The kernels are held to the plain version run in float64. A float32
+    # sum of K unit-scale terms rounds by ~sqrt(K), so the absolute
+    # tolerance of the serving widths (K <= 256) is scaled by sqrt(K / 256)
+    # for the wider layers.
     k = max(d0, *hidden_sizes(d0))
     return dict(rtol=1e-5, atol=1e-6 * max(1.0, float(np.sqrt(k / 256))))
+
+
+def _exact(x, ws, bs, final):
+    """The plain version in float64: the yardstick of both kernels (three
+    TF32 passes and float32 FMA each round differently from float32 GEMMs)."""
+    return fused_mlp.mlp4_reference(x.double(), [w.double() for w in ws],
+                                    [b.double() for b in bs], final=final)
+
+
+def _counts():
+    return fused_mlp.TC_LAUNCHES, fused_mlp.SIMT_LAUNCHES, fused_mlp.LAUNCHES
+
+
+def _moved(before, variant):
+    tc, simt, total = before
+    return (tc + (variant == "tensor_core"), simt + (variant == "simt"), total + 1)
 
 
 @pytest.mark.parametrize("final", FINALS)
 @pytest.mark.parametrize("d0", IN_WIDTHS)
 def test_fused_mlp4_matches_plain(device, d0, final):
     ws, bs = _mlp(d0, device)
+    assert fused_mlp.kernel_variant([d0, *(w.shape[1] for w in ws)]) == VARIANTS[d0]
     for n in NS:
         x = torch.tensor(np.random.default_rng(n).standard_normal((n, d0),
                                                                   dtype=np.float32),
                          device=device)
-        before = fused_mlp.LAUNCHES
+        before = _counts()
         got = fused_mlp.fused_mlp4(x, ws, bs, final=final)
         torch.cuda.synchronize()
-        assert fused_mlp.LAUNCHES == before + 1
-        want = fused_mlp.mlp4_reference(x, ws, bs, final=final)
+        assert _counts() == _moved(before, VARIANTS[d0])
         assert got.shape == (n, OUT)
-        torch.testing.assert_close(got, want, **_tolerance(d0))
+        torch.testing.assert_close(got.double(), _exact(x, ws, bs, final),
+                                   **_tolerance(d0))
+
+
+@pytest.mark.parametrize("variant", ("tensor_core", "simt"))
+def test_both_kernels_match_float64_at_the_serving_widths(device, variant):
+    """The SIMT kernel too runs the serving widths (`chip_smoke.py` times
+    the two there), through the private launch."""
+    ws, bs = _mlp(133, device)
+    for n in NS:
+        x = torch.tensor(np.random.default_rng(n).standard_normal((n, 133),
+                                                                  dtype=np.float32),
+                         device=device)
+        for final in FINALS:
+            before = _counts()
+            got = fused_mlp._launch(variant, x, ws, bs, final)
+            torch.cuda.synchronize()
+            assert _counts() == _moved(before, variant)
+            torch.testing.assert_close(got.double(), _exact(x, ws, bs, final),
+                                       rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("d0,variant", [(288, "tensor_core"), (289, "simt")])
+def test_variant_rule_matches_the_card(device, monkeypatch, d0, variant):
+    """At the edge of the tensor-core kernel's shared memory (widths
+    d0 -> 256 -> 256 -> 256 -> 30: 231,424 bytes at d0 288, 233,472 at 289)
+    the rule's choice launches and is right, and the launch refuses a
+    layout 4 bytes short of the kernel's own carve-up."""
+    dims = (d0, 256, 256, 256, OUT)
+    assert fused_mlp.kernel_variant(dims) == variant
+    ws, bs = _mlp(d0, device, dims=dims)
+    pa, pb, nbytes = fused_mlp.tc_layout(dims)
+    with monkeypatch.context() as m:
+        m.setattr(fused_mlp, "tc_layout", lambda _: (pa, pb, nbytes - 4))
+        before = _counts()
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_mlp._launch("tensor_core", torch.randn(8, d0, device=device), ws, bs,
+                              "none")
+        assert _counts() == before
+    x = torch.randn(300, d0, device=device)
+    before = _counts()
+    got = fused_mlp.fused_mlp4(x, ws, bs, final="none")
+    torch.cuda.synchronize()
+    assert _counts() == _moved(before, variant)
+    torch.testing.assert_close(got.double(), _exact(x, ws, bs, "none"),
+                               **_tolerance(d0))
+
+
+@pytest.mark.parametrize("dims", [(133, 200, 72, 40, 30), (7, 136, 17, 9, 3)])
+def test_tensor_core_kernel_at_ragged_widths(device, dims):
+    """Widths whose n-tiles do not fill every warp's share (the kernel
+    multiplies those tiles and stores none of them), K not a multiple of
+    8, and rows that are not 16-byte aligned (copied a float at a time)."""
+    assert fused_mlp.kernel_variant(dims) == "tensor_core"
+    ws, bs = _mlp(dims[0], device, dims=dims)
+    for n in (1, 100, 513):
+        x = torch.randn(n, dims[0], device=device)
+        for final in FINALS:
+            before = _counts()
+            got = fused_mlp.fused_mlp4(x, ws, bs, final=final)
+            torch.cuda.synchronize()
+            assert _counts() == _moved(before, "tensor_core")
+            assert got.shape == (n, dims[-1])
+            torch.testing.assert_close(got.double(), _exact(x, ws, bs, final),
+                                       rtol=1e-5, atol=1e-6)
 
 
 def test_fused_mlp4_rejects_what_it_cannot_run(device):
@@ -92,10 +176,10 @@ def test_fused_mlp4_rejects_what_it_cannot_run(device):
     with pytest.raises(ValueError, match="one device"):
         fused_mlp.fused_mlp4(torch.zeros(4, 133, device=device), ws[:3] + [ws[3].cpu()], bs)
     wide_ws, wide_bs = _mlp(4000, device)
-    before = fused_mlp.LAUNCHES
+    before = _counts()
     with pytest.raises(ValueError, match="shared memory"):
         fused_mlp.fused_mlp4(torch.zeros(4, 4000, device=device), wide_ws, wide_bs)
-    assert fused_mlp.LAUNCHES == before
+    assert _counts() == before
     empty = fused_mlp.fused_mlp4(torch.zeros(0, 133, device=device), ws, bs)
     assert empty.shape == (0, OUT)
 
@@ -109,15 +193,17 @@ def test_generate_samples_fast_launches_the_kernel(device):
     gen = model.state["generator"]
     apply_train(gen, 2.0 * torch.randn(256, 128, device=device),
                 torch.arange(256, device=device) % 5)
-    before = fused_mlp.LAUNCHES
+    before = _counts()
     s = model.generate_samples_fast(2, 1000)
-    assert fused_mlp.LAUNCHES == before + 1
+    assert _counts() == _moved(before, "tensor_core")  # the serving widths
     assert s.shape == (1000, 30) and np.isfinite(s).all()
     z = torch.randn(1000, 128, device=device)
     labels = torch.full((1000,), 2, device=device)
     fast = fused_mlp.fast_generator_forward(gen, z, one_hot(labels, 5))
-    module_out, _ = apply_eval(gen, z, labels)
-    torch.testing.assert_close(fast, module_out, rtol=1e-5, atol=1e-6)
+    # Against the module's eval forward on a float64 copy of the generator.
+    module_out, _ = apply_eval(copy.deepcopy(gen).double(), z.double(), labels)
+    assert module_out.dtype == torch.float64
+    torch.testing.assert_close(fast.double(), module_out, rtol=1e-5, atol=1e-6)
 
 
 # ----------------------------------------------------------- block attention

@@ -4,8 +4,9 @@ On the CPU `fused_mlp4` takes its plain PyTorch version, so these tests
 hold that version, the BatchNorm fold and the generator's fast path to
 the Pallas kernel run in interpret mode (as `tests/test_kernels.py` runs
 it) at the serving widths 133->256->128->64->30, rtol 1e-5, atol 1e-6.
-The CUDA kernel itself is held to the same plain version on the card by
-`chip_smoke.py`.
+The CUDA kernels themselves are held to the plain version run in float64
+on the card (`chip_smoke.py`, `tests/test_torch_port_cuda.py`); their
+numerics are emulated in `tests/test_torch_port_fused_mlp_tf32.py`.
 """
 
 import jax
@@ -60,11 +61,11 @@ def test_fused_mlp4_cpu_route_and_checks():
     arguments raise before any launch."""
     ws, bs = _t(_random_mlp(1)[0]), _t(_random_mlp(1)[1])
     x = torch.randn(9, DIMS[0], generator=torch.Generator().manual_seed(0))
-    before = tf.LAUNCHES
+    before = (tf.LAUNCHES, tf.TC_LAUNCHES, tf.SIMT_LAUNCHES)
     torch.testing.assert_close(tf.fused_mlp4(x, ws, bs, final="tanh"),
                                tf.mlp4_reference(x, ws, bs, final="tanh"),
                                rtol=0, atol=0)
-    assert tf.LAUNCHES == before
+    assert (tf.LAUNCHES, tf.TC_LAUNCHES, tf.SIMT_LAUNCHES) == before
     with pytest.raises(ValueError):
         tf.fused_mlp4(x, ws, bs, final="relu")
     with pytest.raises(ValueError):
