@@ -32,7 +32,25 @@ long-sequence attention stack that reaches the block-attention kernels:
      launch of the long-sequence path;
   6. breakdown: `torch.profiler` over serving calls and a block forward,
      for the device time per call, its idle share and the kernels that
-     take it.
+     take it;
+  7. training, on an imbalanced Gaussian-blob stand-in of the blob fixture
+     (made with numpy: the card's machine has no sklearn):
+     `train_graph_vs_eager` (a one-epoch fit replaying the captured CUDA
+     graph against the plain eager epoch, every loss, parameter, buffer and
+     Adam tensor at rtol 1e-5, atol 1e-6; after 3 epochs reported only),
+     `train` (500-epoch captured fits in strict and balanced mode, gated on
+     finite histories, the epoch-0 class loss, the recon loss (falling in
+     balanced mode; in strict mode, where the JAX package's own recon loss
+     rises, within 5 standard deviations of its last-50 mean over 5 seeds)
+     and the companion classifier's training accuracy; qualified yields
+     reported),
+     `pipeline` (`run_balance_pipeline` end to end: artifact schema, counts,
+     macro-F1), then a training `timing` line (epochs/s and steps/s of the
+     captured and the eager fit, device time per replayed epoch by CUDA
+     events, classifier and pipeline seconds) and `breakdown` lines
+     (`torch.profiler` over a replayed and an eager epoch). The kernels'
+     launch counts over these phases must read 0: no kernel lies on the
+     training path.
 
 Each phase prints one JSON line; then the `kernels` line, the card's name
 and power limit as `nvidia-smi` gives them, and as the last line
@@ -89,6 +107,23 @@ TF32_PEAKS = {"H100 SXM": 495e12, "H100 PCIe": 378e12, "H100 NVL": 417e12}
 # queues a round of calls: longer than the host takes to launch 50 calls of
 # the plain fused MLP version (8 kernels each).
 HOLD_CYCLES = 40_000_000
+# Training: the captured epoch is held to the eager one at this tolerance
+# (both run the same kernels with the same Philox offsets: bitwise
+# equality is expected).
+TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-6
+STANDIN_COUNTS = (500, 200, 150, 100, 50)
+GAN_EPOCHS, CLF_EPOCHS = 500, 100
+STEPS_PER_EPOCH = {"strict": CLASSES * 13, "balanced": 13}
+# The JAX package's strict-mode CVAE-GAN on the same stand-in, seeds 0-4,
+# on the CPU (`experiments/torch_port_strict_reference.py`): the mean recon
+# loss over the last 50 of 500 epochs. In strict mode the reference's recon
+# loss rises from epoch 0 (0.089-0.095 on every seed), so the port's strict
+# fit is held to these, within 5 standard deviations of their mean, where
+# the balanced fit is held to a falling recon loss.
+JAX_STRICT_RECON_LAST50 = (0.16611650466918945, 0.1633944422006607,
+                           0.16289449065923692, 0.16205778270959853,
+                           0.1620414972305298)
+REFERENCE_SIGMAS = 5.0
 
 
 def emit(obj) -> None:
@@ -208,6 +243,7 @@ def breakdown(torch, fn, call_ms: float, calls: int = 10, top: int = 6):
         return {"device_ms_per_call": None, "call_ms": call_ms}
     return {"device_ms_per_call": device_ms, "call_ms": call_ms,
             "device_idle_share": 1.0 - device_ms / call_ms,
+            "device_ops_per_call": sum(e.count for e in on_device) / calls,
             "top": [[e.key[:60], e.self_device_time_total / 1e3 / calls, e.count / calls]
                     for e in on_device[:top]]}
 
@@ -409,6 +445,125 @@ def mlp_bound(part, x, weights, biases):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "f32_fma_bound_ms": max(flops / flop_rate * 1e3, bytes_ms)}
 
+
+def standin_dataset(TabularDataset, minmax_scale):
+    """The blob fixture's shape without sklearn: 5 Gaussian blobs (centres
+    uniform in [-10, 10], std 1, as `make_blobs` draws them) in 30
+    dimensions, 1000 rows of 500/200/150/100/50 per class, min-max scaled
+    to [0, 1], split 900/100 at random."""
+    rng = np.random.default_rng(0)
+    centres = rng.uniform(-10.0, 10.0, (CLASSES, FEATURES))
+    x = np.concatenate([centres[c] + rng.standard_normal((n, FEATURES))
+                        for c, n in enumerate(STANDIN_COUNTS)]).astype(np.float32)
+    y = np.repeat(np.arange(CLASSES), STANDIN_COUNTS).astype(np.int32)
+    perm = rng.permutation(len(y))
+    x, y = minmax_scale(x[perm]), y[perm]
+    return TabularDataset(x[:900], y[:900], x[900:], y[900:], name="blob_standin")
+
+
+def train_settings(config, epochs):
+    settings = config.Settings()
+    settings.gan.epochs = epochs
+    settings.classifier.epochs = CLF_EPOCHS
+    return settings
+
+
+def state_tensors(model):
+    """Every parameter, buffer and Adam tensor of a trainer, in one order."""
+    return [t.detach() for t in model._static_tensors()]
+
+
+def compare_fits(torch, a, b):
+    """(max abs difference, worst err / tolerance, bitwise equal) of two
+    trainers' loss histories and state tensors."""
+    pairs = [(torch.tensor(a.loss_history[k], dtype=torch.float64),
+              torch.tensor(b.loss_history[k], dtype=torch.float64)) for k in a.loss_keys]
+    pairs += [(x.double(), y.double()) for x, y in zip(state_tensors(a), state_tensors(b))]
+    err = ratio = 0.0
+    for x, y in pairs:
+        e, r = close_enough(x, y, TRAIN_RTOL, TRAIN_ATOL)
+        err, ratio = max(err, e), max(ratio, r)
+    return err, ratio, all(torch.equal(x, y) for x, y in pairs)
+
+
+class ReplayCounter:
+    """Counts `CUDAGraph.replay` calls and calls of a trainer class's
+    `_epoch` (the epoch function, which a capture calls once)."""
+
+    def __init__(self, torch, trainer_cls):
+        self.replays = self.epochs = 0
+        replay, epoch = torch.cuda.CUDAGraph.replay, trainer_cls._epoch
+        counter = self
+
+        def counted_replay(graph):
+            counter.replays += 1
+            return replay(graph)
+
+        def counted_epoch(model):
+            counter.epochs += 1
+            return epoch(model)
+
+        torch.cuda.CUDAGraph.replay = counted_replay
+        trainer_cls._epoch = counted_epoch
+        self._originals = (torch.cuda.CUDAGraph, replay, trainer_cls, epoch)
+
+    def restore(self):
+        graph_cls, replay, trainer_cls, epoch = self._originals
+        graph_cls.replay, trainer_cls._epoch = replay, epoch
+
+    def reset(self):
+        self.replays = self.epochs = 0
+
+
+def train_checks(torch, model, ds, mode):
+    """The gates of one 500-epoch fit, and its qualified yield per class.
+    Returns (report, the gates that missed)."""
+    hist = {k: np.asarray(v) for k, v in model.loss_history.items()}
+    missed = []
+    if set(hist) != set(model.loss_keys):
+        missed.append(f"{mode}: history keys {sorted(hist)}")
+    for k, v in hist.items():
+        if not (len(v) == GAN_EPOCHS and np.isfinite(v).all()):
+            missed.append(f"{mode}: {k} has {len(v)} entries or non-finite values")
+    class0 = float(hist["class_loss"][0])
+    if abs(class0 - np.log(CLASSES)) > 0.3:
+        missed.append(f"{mode}: epoch-0 class loss {class0}, not within 0.3 of ln 5")
+    recon_first, recon_last50 = float(hist["recon_loss"][0]), float(hist["recon_loss"][-50:].mean())
+    if mode == "balanced" and not recon_last50 < recon_first:
+        missed.append(f"{mode}: recon loss did not fall ({recon_first} -> {recon_last50})")
+    ref_mean = float(np.mean(JAX_STRICT_RECON_LAST50))
+    ref_band = REFERENCE_SIGMAS * float(np.std(JAX_STRICT_RECON_LAST50, ddof=1))
+    if mode == "strict" and abs(recon_last50 - ref_mean) > ref_band:
+        missed.append(f"{mode}: last-50 recon loss {recon_last50} outside the JAX "
+                      f"reference's {ref_mean} +- {ref_band}")
+    x = torch.as_tensor(ds.tr_samples, device=model.device)
+    pred = model._classifier_logits(model.state, x).argmax(-1).cpu().numpy()
+    accuracy = float(np.mean(pred == ds.tr_labels))
+    if accuracy < 0.95:
+        missed.append(f"{mode}: companion classifier accuracy {accuracy} < 0.95")
+    counts = np.bincount(ds.tr_labels, minlength=CLASSES)
+    fstate = model._filter_state(model.state)
+    thr = model.hparams["confidence_threshold"]
+    yields = {}
+    for c in range(CLASSES):
+        need = int(counts.max() - counts[c])
+        q = model.generate_qualified_samples(c, need)
+        check(q.shape[1] == FEATURES and len(q) <= need, f"{mode}: qualified {q.shape}")
+        if len(q):
+            probs = torch.softmax(model._classifier_logits(
+                fstate, torch.as_tensor(q, device=model.device)), dim=-1)
+            ok = (probs.amax(-1) > thr) & (probs.argmax(-1) == c)
+            check(bool(ok.all()), f"{mode} class {c}: a qualified row fails the filter")
+        yields[str(c)] = [len(q), need]
+    report = {"recon_gate": ("falls below epoch 0" if mode == "balanced" else
+                             f"last-50 mean within {ref_mean} +- {ref_band} (JAX, seeds 0-4)"),
+              "epoch0": {k: float(v[0]) for k, v in hist.items()},
+              "last50_mean": {k: float(v[-50:].mean()) for k, v in hist.items()},
+              "mean_by_100_epochs": {k: [float(v[i:i + 100].mean())
+                                         for i in range(0, len(v), 100)]
+                                     for k, v in hist.items()},
+              "companion_train_accuracy": accuracy, "qualified_yield_of_need": yields}
+    return report, missed
 
 def main() -> int:
     import torch
@@ -705,6 +860,144 @@ def main() -> int:
           "x": list(xs["t1"].shape), "card": card,
           **breakdown(torch, block_forward, 1e3 / forward_rate)})
 
+    # 7. training ---------------------------------------------------------
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    from cvaegan_tpu_torch.algorithms.cvae_gan import CVAEGAN as TrainerClass
+    from cvaegan_tpu_torch.core import config as tconfig
+    from cvaegan_tpu_torch.data.tabular import TabularDataset, minmax_scale
+    from cvaegan_tpu_torch.pipelines.balance import run_balance_pipeline
+
+    ds = standin_dataset(TabularDataset, minmax_scale)
+    counter = ReplayCounter(torch, TrainerClass)
+
+    def fitted(epochs, eager=False, balanced=False):
+        m = CVAEGAN(seed=0, device="cuda", settings=train_settings(tconfig, epochs),
+                    balanced_mode=balanced)
+        m.verbose = False
+        m.fit(ds, eager=eager)
+        torch.cuda.synchronize()
+        return m
+
+    zero_counts(fused_mlp, ba)
+    counter.reset()
+    captured = fitted(1)
+    captured_calls = (counter.replays, counter.epochs)
+    counter.reset()
+    eager = fitted(1, eager=True)
+    eager_calls = (counter.replays, counter.epochs)
+    check(captured_calls == (1, 1) and captured._graph is not None,
+          f"the captured fit made (replays, epoch calls) {captured_calls}")
+    check(eager_calls == (0, 1) and eager._graph is None,
+          f"the eager fit made (replays, epoch calls) {eager_calls}")
+    err1, ratio1, bitwise1 = compare_fits(torch, captured, eager)
+    err3, ratio3, bitwise3 = compare_fits(torch, fitted(3), fitted(3, eager=True))
+    emit({"phase": "train_graph_vs_eager", "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL,
+          "tensors": len(state_tensors(captured)),
+          "captured_replays_epoch_calls": captured_calls,
+          "eager_replays_epoch_calls": eager_calls,
+          "epoch1": {"max_abs_diff": err1, "worst_err_over_tol": ratio1, "bitwise": bitwise1},
+          "epoch3_ungated": {"max_abs_diff": err3, "worst_err_over_tol": ratio3,
+                             "bitwise": bitwise3}})
+    check(ratio1 <= 1.0, f"captured and eager epochs disagree ({ratio1} of the tolerance)")
+
+    fits, train_report, train_missed = {}, {}, []
+    for mode in ("strict", "balanced"):
+        counter.reset()
+        t0 = time.perf_counter()
+        fits[mode] = fitted(GAN_EPOCHS, balanced=mode == "balanced")
+        seconds = time.perf_counter() - t0
+        check((counter.replays, counter.epochs) == (GAN_EPOCHS, 1),
+              f"{mode} fit: {counter.replays} replays, {counter.epochs} epoch calls")
+        report, missed = train_checks(torch, fits[mode], ds, mode)
+        train_report[mode] = {"fit_seconds_with_capture": seconds, **report}
+        train_missed += missed
+    emit({"phase": "train", "epochs": GAN_EPOCHS, "rows": len(ds.tr_labels),
+          "class_counts": np.bincount(ds.tr_labels).tolist(),
+          "replays_per_fit": GAN_EPOCHS, **train_report, "gates_missed": train_missed})
+    check(not train_missed, "; ".join(train_missed))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        settings = train_settings(tconfig, GAN_EPOCHS)
+        settings.paths = tconfig.Paths(root=tmp)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            result = run_balance_pipeline(CVAEGAN, "CVAE_GAN", ds, out_dir=tmp,
+                                          settings=settings, plot=False, device="cuda")
+        with open(result["pickle_path"], "rb") as f:
+            artifact = pickle.load(f)
+    check(isinstance(artifact, tuple) and len(artifact) == 4,
+          "the pipeline's pickle is not 4 arrays")
+    tr_x, tr_y, te_x, te_y = artifact
+    check((tr_x.dtype, tr_y.dtype, te_x.dtype, te_y.dtype)
+          == (np.float32, np.int32, np.float32, np.int32), "artifact dtypes")
+    base = ds.renormalized()
+    added = len(tr_y) - len(base.tr_labels)
+    check(np.array_equal(tr_y[:len(base.tr_labels)], base.tr_labels)
+          and np.array_equal(np.bincount(tr_y, minlength=CLASSES),
+                             base.class_counts() + np.bincount(tr_y[len(base.tr_labels):],
+                                                               minlength=CLASSES))
+          and len(tr_x) == len(tr_y) and np.array_equal(te_y, base.te_labels)
+          and np.array_equal(te_x, base.te_samples),
+          "augmented counts are not the original plus the generated rows")
+    f1 = result["multiclass_metrics"]["F1"]
+    clf_seconds = result["classifier"].fit_seconds
+    torch.cuda.synchronize()
+    training_launches = (fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES)
+    emit({"phase": "pipeline", "gan_epochs": GAN_EPOCHS, "clf_epochs": CLF_EPOCHS,
+          "generated_rows": added,
+          "augmented_counts": np.bincount(tr_y, minlength=CLASSES).tolist(),
+          "multiclass_metrics": result["multiclass_metrics"],
+          "binary_metrics": result["binary_metrics"],
+          "classifier_fit_seconds": clf_seconds, "pipeline_seconds": result["seconds"],
+          "training_launches_fused_b2_b3": training_launches})
+    check(f1 >= 0.99, f"pipeline multiclass macro-F1 {f1} < 0.99")
+    check(training_launches == (0, 0, 0),
+          f"kernels launched on the training path (fused, B2, B3): {training_launches}")
+
+    # training timing: steady replays against eager epochs, in one call
+    train_timing = {"card": card}
+    replay_ms = {}
+    for mode, model_ in fits.items():
+        graph = model_._graph[1]
+
+        def replay(model_=model_, graph=graph):
+            model_._epoch_t.fill_(GAN_EPOCHS)
+            graph.replay()
+
+        (device_ms,), rounds = cuda_ms(torch, [replay], iters=20, reps=4, warmup=2)
+        (host_rate,) = samples_per_s(torch, [replay], 1, iters=20, reps=4)
+        replay_ms[mode] = (replay, 1e3 / host_rate)
+        train_timing[mode] = {
+            "replay_device_ms_per_epoch": device_ms, "replay_device_ms_rounds": rounds[0],
+            "replay_epochs_per_s": host_rate,
+            "replay_steps_per_s": host_rate * STEPS_PER_EPOCH[mode],
+            "fit_epochs_per_s_with_capture":
+                GAN_EPOCHS / train_report[mode]["fit_seconds_with_capture"],
+            "steps_per_epoch": STEPS_PER_EPOCH[mode]}
+    counter.restore()
+    eager_model = fitted(1, eager=True)
+
+    def eager_epoch(model_=eager_model):
+        model_._epoch_t.fill_(1)
+        model_._epoch()
+
+    (eager_rate,) = samples_per_s(torch, [eager_epoch], 1, iters=3, reps=2)
+    train_timing["strict"].update({"eager_epochs_per_s": eager_rate,
+                                   "eager_steps_per_s": eager_rate * STEPS_PER_EPOCH["strict"]})
+    train_timing.update({"classifier_fit_seconds": clf_seconds,
+                         "pipeline_seconds": result["seconds"]})
+    emit({"phase": "timing", "training": "cvae_gan", **train_timing})
+
+    replay_fn, replay_call_ms = replay_ms["strict"]
+    emit({"phase": "breakdown", "call": "replayed strict epoch", "card": card,
+          **breakdown(torch, replay_fn, replay_call_ms, calls=3, top=8)})
+    emit({"phase": "breakdown", "call": "eager strict epoch", "card": card,
+          **breakdown(torch, eager_epoch, 1e3 / eager_rate, calls=2, top=8)})
+
     def attention_entry(name, replaces, launches_, entropy, library):
         t1, t2 = attn_timing["t1"], attn_timing["t2"]
         key = "b3" if entropy else "b2"
@@ -713,6 +1006,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "cvaegan_tpu_torch/csrc/block_attention.cu",
             "replaces": replaces, "launches": launches_,
+            "training_launches": training_launches[2 if entropy else 1],
             "max_abs_err": attn_err[name],
             "scale10_err_over_limit": attn_stats[name]["scale10"][1],
             "shape": t1["shape"],
@@ -734,6 +1028,7 @@ def main() -> int:
          "source": "cvaegan_tpu_torch/csrc/fused_mlp4.cu",
          "replaces": "cvaegan_tpu/kernels/fused_mlp.py:44",
          "launches": launches["total"], "launches_by_variant": launches,
+         "training_launches": training_launches[0],
          "max_abs_err": mlp_stats["tensor_core"]["max_abs_err"],
          "err_over_tol_f64": mlp_stats["tensor_core"]["err_over_tol"],
          "plain_f32_err_over_tol_f64": mlp_plain_worst,

@@ -10,7 +10,8 @@ use). Importing the package does not touch CUDA.
 
 from cvaegan_tpu_torch.algorithms.cvae_gan import CVAEGAN
 from cvaegan_tpu_torch.algorithms.rain_gan import RAIN_GAN
+from cvaegan_tpu_torch.eval.classifier import Classifier
 
 __version__ = "0.1.0"
 
-__all__ = ["CVAEGAN", "RAIN_GAN"]
+__all__ = ["CVAEGAN", "Classifier", "RAIN_GAN"]

@@ -19,12 +19,17 @@ of the port's modules:
     `SpectralDense_{0,1,2}` in the discriminator), the shortcut only
     where the width changes.
 
+A network's tree may also hold `opt_state`: its optax Adam state as
+`{"count", "mu", "nu"}`, with `mu` and `nu` shaped like `params`. It goes
+into the port's `core.state.Adam` of that network, so a JAX state resumes
+training in the port.
+
 A leaf the port has no place for, or a place no leaf fills, raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -177,6 +182,26 @@ def load_net(net: nn.Module, tree: Mapping) -> None:
         tensor.copy_(torch.from_numpy(np.array(arr, np.float32)))
 
 
+@torch.no_grad()
+def load_adam(opt, net: nn.Module, tree: Mapping) -> None:
+    """Copy a network's optax Adam state `{"count", "mu", "nu"}` into `opt`,
+    the port's `Adam` over `net`'s parameters, in place."""
+    slots = {id(p): i for i, p in enumerate(opt.params)}
+    params = {path: leaf for path, leaf in net_leaves(net).items() if path[0] == "params"}
+    if sorted(slots) != sorted(id(tensor) for tensor, _ in params.values()):
+        raise ValueError(f"{type(net).__name__}: the optimizer does not hold "
+                         "exactly the network's parameters")
+    for moment, dst in (("mu", opt.m), ("nu", opt.v)):
+        got = {("params", *k): v for k, v in _flatten(tree[moment]).items()}
+        if set(got) != set(params):
+            raise ValueError(f"{type(net).__name__}: Adam {moment} leaves differ "
+                             f"from the parameters: {sorted(set(got) ^ set(params))}")
+        for path, (tensor, transposed) in params.items():
+            arr = got[path].T if transposed else got[path]
+            dst[slots[id(tensor)]].copy_(torch.from_numpy(np.array(arr, np.float32)))
+    opt.count.fill_(int(np.asarray(tree["count"])))
+
+
 def cvaegan_dims(tree: Mapping) -> Tuple[int, int, int]:
     """(feature_num, label_num, z_size) of a JAX CVAE-GAN state tree."""
     gen = tree["generator"]["params"]
@@ -196,16 +221,25 @@ def rain_gan_dims(tree: Mapping) -> Tuple[int, int, int]:
     return feature_num, label_num, z_size
 
 
-def state_from_jax(tree: Mapping, state: nn.ModuleDict) -> nn.ModuleDict:
+def state_from_jax(tree: Mapping, state: nn.ModuleDict,
+                   optimizers: Optional[Mapping] = None) -> nn.ModuleDict:
     """Fill a trainer's state (`encoder`, `generator`, `discriminator`,
     `classifier`, and `classifier_ema` under the EMA filter) from `tree`,
     which holds one Flax variable tree per network, each with `params`
-    and its mutable collections. Every leaf is accounted for."""
+    and its mutable collections, and optionally `opt_state`, which goes
+    into `optimizers[name]`. Every leaf is accounted for."""
     if set(tree) != set(state.keys()):
         raise ValueError(f"networks in the tree {sorted(tree)} differ from "
                          f"the port's {sorted(state.keys())}")
     for name, net in state.items():
-        load_net(net, tree[name])
+        variables = dict(tree[name])
+        opt_state = variables.pop("opt_state", None)
+        load_net(net, variables)
+        if opt_state is not None:
+            if optimizers is None or name not in optimizers:
+                raise ValueError(f"{name}: the tree holds optimizer state, "
+                                 "the port has no optimizer for it")
+            load_adam(optimizers[name], net, opt_state)
     return state
 
 

@@ -318,3 +318,80 @@ def test_attention_auto_dispatch_raises_for_a_head_dim_the_kernel_lacks(device):
     with torch.no_grad(), pytest.raises(ValueError, match="head dim"):
         mhsa(torch.randn(2, 128, 192, device=device))
     assert block_attention.ENTROPY_LAUNCHES == before
+
+
+# ------------------------------------------------------------------ training
+def _blobs(rows=400, features=30, classes=5, seed=0):
+    """Gaussian blobs made with numpy (the card's machine has no sklearn),
+    min-max scaled to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-10.0, 10.0, (classes, features))
+    y = (np.arange(rows) % classes).astype(np.int32)
+    x = (centres[y] + rng.standard_normal((rows, features))).astype(np.float32)
+    x = (x - x.min(0)) / (x.max(0) - x.min(0))
+    return x, y
+
+
+def _trainer(epochs, **kwargs):
+    from cvaegan_tpu_torch.core import config as tconfig
+
+    settings = tconfig.Settings()
+    settings.gan.epochs = epochs
+    model = CVAEGAN(seed=0, device="cuda", settings=settings, **kwargs)
+    model.verbose = False
+    return model
+
+
+@pytest.mark.parametrize("balanced_mode", [False, True])
+def test_captured_epoch_matches_eager(device, balanced_mode):
+    """One epoch replayed from the captured CUDA graph against the plain
+    eager epoch: the same kernels with the same Philox offsets."""
+    data = _blobs()
+    captured = _trainer(1, balanced_mode=balanced_mode)
+    captured.fit(data)
+    eager = _trainer(1, balanced_mode=balanced_mode)
+    eager.fit(data, eager=True)
+    assert captured._graph is not None and eager._graph is None
+    for k in captured.loss_keys:
+        torch.testing.assert_close(torch.tensor(captured.loss_history[k]),
+                                   torch.tensor(eager.loss_history[k]), rtol=1e-5, atol=1e-6)
+    for a, b in zip(captured._static_tensors(), eager._static_tensors()):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-5, atol=1e-6)
+
+
+def test_capture_is_reused_across_fits(device):
+    data = _blobs()
+    model = _trainer(2)
+    model.fit(data)
+    graph = model._graph[1]
+    model.fit(data)
+    assert model._graph[1] is graph
+    assert all(len(v) == 4 and np.isfinite(v).all() for v in model.loss_history.values())
+
+
+def test_generator_advances_between_replays(device):
+    """Replays from the same state draw new noise each time, and the same
+    noise again once the generator's state is put back."""
+    model = _trainer(1)
+    model.fit(_blobs())
+    replay = model._graph[1].replay
+    with torch.no_grad():
+        saved = [t.detach().clone() for t in model._static_tensors()]
+    rng_state = model.generator.get_state()
+
+    def run(reset_generator):
+        with torch.no_grad():
+            for t, s in zip(model._static_tensors(), saved):
+                t.copy_(s)
+        if reset_generator:
+            model.generator.set_state(rng_state)
+        model._epoch_t.fill_(5)
+        replay()
+        torch.cuda.synchronize()
+        return model._losses_out.clone()
+
+    first = run(True)
+    second = run(False)
+    again = run(True)
+    assert not torch.equal(first, second)
+    assert torch.equal(first, again)
