@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving paths at full width with random weights made
-from a seed, on `cuda:0`: the flagship CVAE-GAN (30 features, 5 classes,
-z 128, generator 133->256->128->64->30), the RAIN-GAN (the same widths;
-four pre-LN residual-attention networks over singleton sequences), and the
-long-sequence attention stack that reaches the block-attention kernels:
+Drives the port's serving and training paths at full width with random
+weights made from a seed, on `cuda:0`: the flagship CVAE-GAN (30
+features, 5 classes, z 128, generator 133->256->128->64->30), the
+RAIN-GAN (the same widths; four pre-LN residual-attention networks over
+singleton sequences), the long-sequence attention stack that reaches the
+block-attention kernels, the other MLP trainers and `SeedBank`:
 
   1. environment: torch/CUDA versions, card name and power limit; TF32 off;
   2. build: compiles every kernel source from `cvaegan_tpu_torch/csrc`, one
@@ -50,7 +51,24 @@ long-sequence attention stack that reaches the block-attention kernels:
      events, classifier and pipeline seconds) and `breakdown` lines
      (`torch.profiler` over a replayed and an eager epoch). The kernels'
      launch counts over these phases must read 0: no kernel lies on the
-     training path.
+     training path;
+  8. family: the CGAN, CVAE, GAN, VAE and VAE-GAN on the same stand-in in
+     strict mode: for each, a one-epoch captured fit against the eager one
+     (rtol 1e-5, atol 1e-6), a 100-epoch captured fit gated on finite
+     histories and, where there is a companion classifier, a class loss
+     near ln 5 before training and at epoch 0, the replayed epoch's
+     device time and steps/s, then every serving entry point for all 5
+     classes at 8192 rows (B1's launches counted around them: the fast
+     path of the CGAN and CVAE, held to the generator run in float64);
+  9. seed_bank: `SeedBank` of strict CVAE-GANs on stand-ins of different
+     class mixes (one lacking a class): the captured banked epoch against
+     the eager one at K = 4, each replica against its serial fit after
+     one epoch from the same drawn Adam moments (rtol 1e-3, atol 1e-4),
+     and for K in {1, 4, 16} the replayed banked epoch's aggregate
+     steps/s, device time by CUDA events and device ops by
+     `torch.profiler` (gated: fewer than twice a serial epoch's at
+     K = 16), then one `generate_samples_fast` on a replica (one B1
+     launch). B1, B2 and B3 launch 0 times on every training path.
 
 Each phase prints one JSON line; then the `kernels` line, the card's name
 and power limit as `nvidia-smi` gives them, and as the last line
@@ -120,6 +138,23 @@ STEPS_PER_EPOCH = {"strict": CLASSES * 13, "balanced": 13}
 # loss rises from epoch 0 (0.089-0.095 on every seed), so the port's strict
 # fit is held to these, within 5 standard deviations of their mean, where
 # the balanced fit is held to a falling recon loss.
+# The other MLP trainers (`family`): a short captured fit of each, in
+# strict mode, and its serving entry points.
+FAMILY = ("CGAN", "CVAE", "GAN", "VAE", "VAEGAN")
+FAMILY_EPOCHS = 100
+# SeedBank (`seed_bank`): strict CVAE-GANs on stand-ins of different class
+# mixes (1000 rows each; the last lacks class 2, so its rounds of class 2
+# are masked); each replica is held to its serial fit after one epoch at
+# the CPU tests' epoch-0 tolerance, both started from the same drawn Adam
+# moments (batched and unbatched matmuls sum in other orders, and from
+# Adam's real first step that noise drives the critic's exactly-cancelling
+# gradients by ~lr per step: `tests/test_torch_port_seed_bank.py`).
+# Timing at K replicas on the first three mixes in turn.
+BANK_MIXES = ((500, 200, 150, 100, 50), (300, 300, 200, 100, 100),
+              (150, 250, 300, 200, 100), (600, 150, 0, 100, 150))
+BANK_RTOL, BANK_ATOL = 1e-3, 1e-4
+BANK_KS = (1, 4, 16)
+BANK_TIMING_EPOCHS = 10
 JAX_STRICT_RECON_LAST50 = (0.16611650466918945, 0.1633944422006607,
                            0.16289449065923692, 0.16205778270959853,
                            0.1620414972305298)
@@ -446,16 +481,17 @@ def mlp_bound(part, x, weights, biases):
             "f32_fma_bound_ms": max(flops / flop_rate * 1e3, bytes_ms)}
 
 
-def standin_dataset(TabularDataset, minmax_scale):
+def standin_dataset(TabularDataset, minmax_scale, counts=STANDIN_COUNTS, seed=0):
     """The blob fixture's shape without sklearn: 5 Gaussian blobs (centres
     uniform in [-10, 10], std 1, as `make_blobs` draws them) in 30
-    dimensions, 1000 rows of 500/200/150/100/50 per class, min-max scaled
-    to [0, 1], split 900/100 at random."""
-    rng = np.random.default_rng(0)
+    dimensions, 1000 rows of `counts` per class (500/200/150/100/50 unless
+    given), min-max scaled to [0, 1], split 900/100 at random; `seed`
+    draws the centres, the rows and the split."""
+    rng = np.random.default_rng(seed)
     centres = rng.uniform(-10.0, 10.0, (CLASSES, FEATURES))
     x = np.concatenate([centres[c] + rng.standard_normal((n, FEATURES))
-                        for c, n in enumerate(STANDIN_COUNTS)]).astype(np.float32)
-    y = np.repeat(np.arange(CLASSES), STANDIN_COUNTS).astype(np.int32)
+                        for c, n in enumerate(counts)]).astype(np.float32)
+    y = np.repeat(np.arange(CLASSES), counts).astype(np.int32)
     perm = rng.permutation(len(y))
     x, y = minmax_scale(x[perm]), y[perm]
     return TabularDataset(x[:900], y[:900], x[900:], y[900:], name="blob_standin")
@@ -564,6 +600,291 @@ def train_checks(torch, model, ds, mode):
                                      for k, v in hist.items()},
               "companion_train_accuracy": accuracy, "qualified_yield_of_need": yields}
     return report, missed
+
+def class_loss_at_init(torch, model, ds):
+    """The companion classifier's cross entropy on the train set before
+    any step (near ln 5 for 5 classes)."""
+    from cvaegan_tpu_torch.core import losses
+
+    x = torch.as_tensor(ds.tr_samples, device=model.device)
+    y = torch.as_tensor(ds.tr_labels, device=model.device)
+    return float(losses.cross_entropy(model._classifier_logits(model.state, x), y))
+
+
+def check_samples(s, rows, what):
+    check(s.shape == (rows, FEATURES) and s.dtype == np.float32, f"{what} gave {s.shape} {s.dtype}")
+    check(np.isfinite(s).all() and s.min() >= 0.0 and s.max() <= 1.0,
+          f"{what} gave values outside [0, 1]")
+
+
+def serve_family(torch, model, ds, fused_mlp):
+    """Every serving entry point of a fitted trainer of the family, for
+    every class at SERVE_ROWS rows; for the conditional ones the fused
+    kernel's output of class 0 is held to the generator module run in
+    float64 on the same z. Returns a report."""
+    from cvaegan_tpu_torch.core.state import apply_eval
+
+    report = {}
+    if model.conditional_sampling:
+        for c in range(CLASSES):
+            check_samples(model.generate_samples(c, SERVE_ROWS), SERVE_ROWS,
+                          f"{model.name}.generate_samples")
+            rng_state = model.generator.get_state()
+            fast = model.generate_samples_fast(c, SERVE_ROWS)
+            check_samples(fast, SERVE_ROWS, f"{model.name}.generate_samples_fast")
+            if c == 0:
+                model.generator.set_state(rng_state)
+                z = model._prior(SERVE_ROWS)
+                labels = model._labels(0, SERVE_ROWS)
+                gen64 = copy.deepcopy(model.state["generator"]).double()
+                exact, _ = apply_eval(gen64, z.double(), labels)
+                err, ratio = close_enough(torch.as_tensor(fast, device=z.device).double(), exact)
+                report["fast_vs_module_f64"] = {"max_abs_err": err, "err_over_tol": ratio}
+                check(ratio <= 1.0, f"{model.name}: generate_samples_fast disagrees with "
+                      f"the generator in float64 ({ratio})")
+    else:
+        check_samples(model.generate_samples(SERVE_ROWS), SERVE_ROWS,
+                      f"{model.name}.generate_samples")
+        try:
+            model.generate_samples_fast(0, SERVE_ROWS)
+            raised = False
+        except NotImplementedError:
+            raised = True
+        check(raised, f"{model.name}.generate_samples_fast did not raise")
+    if "classifier" in model.state:
+        qualified = {(c, thr): model.generate_qualified_samples(
+            c, QUALIFIED_ROWS, confidence_threshold=thr)
+            for c in range(CLASSES) for thr in (None, 0.0)}
+        report["qualified_rows"] = check_qualified(torch, model, qualified, model.device)
+    else:
+        try:
+            model.generate_qualified_samples(0, QUALIFIED_ROWS)
+            raised = False
+        except NotImplementedError:
+            raised = True
+        check(raised, f"{model.name}.generate_qualified_samples did not raise")
+        report["qualified_raises"] = raised
+    if "encoder" in model.state:
+        x, y = ds.tr_samples[:RECON_ROWS], ds.tr_labels[:RECON_ROWS]
+        recon = (model.reconstruct_samples(x, y) if model.conditional_sampling
+                 else model.reconstruct_samples(x))
+        check_samples(recon, RECON_ROWS, f"{model.name}.reconstruct_samples")
+        report["recon_shape"] = list(recon.shape)
+    return report
+
+
+def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
+    """The `family` phase: for each trainer of FAMILY, a one-epoch
+    captured fit against the eager one, a FAMILY_EPOCHS captured fit with
+    its gates, then its serving entry points with the kernels' launch
+    counts read around them. Returns (report, training launches (fused,
+    B2, B3), fast-path launches of B1)."""
+    report, missed = {}, []
+    train_launches, fast_launches = [0, 0, 0], 0
+    for name in FAMILY:
+        cls = getattr(tp, name)
+
+        def fitted(epochs, eager=False):
+            m = cls(seed=0, device="cuda", settings=train_settings(tconfig, epochs))
+            m.verbose = False
+            m.fit(ds, eager=eager)
+            torch.cuda.synchronize()
+            return m
+
+        zero_counts(fused_mlp, ba)
+        counter.reset()
+        captured = fitted(1)
+        captured_calls = (counter.replays, counter.epochs)
+        counter.reset()
+        eager = fitted(1, eager=True)
+        eager_calls = (counter.replays, counter.epochs)
+        check(captured_calls == (1, 1) and eager_calls == (0, 1),
+              f"{name}: (replays, epoch calls) captured {captured_calls}, eager {eager_calls}")
+        err, ratio, bitwise = compare_fits(torch, captured, eager)
+        check(ratio <= 1.0, f"{name}: captured and eager epochs disagree ({ratio})")
+
+        fresh = cls(seed=0, device="cuda")
+        fresh._prepare(ds)
+        init_class = class_loss_at_init(torch, fresh, ds) if "classifier" in fresh.state else None
+        counter.reset()
+        t0 = time.perf_counter()
+        model = fitted(FAMILY_EPOCHS)
+        seconds = time.perf_counter() - t0
+        check((counter.replays, counter.epochs) == (FAMILY_EPOCHS, 1),
+              f"{name}: {counter.replays} replays, {counter.epochs} epoch calls")
+        hist = {k: np.asarray(v) for k, v in model.loss_history.items()}
+        for k, v in hist.items():
+            if not (len(v) == FAMILY_EPOCHS and np.isfinite(v).all()):
+                missed.append(f"{name}: {k} has {len(v)} entries or non-finite values")
+        class0 = [v for v in (init_class, hist.get("class_loss", [None])[0]) if v is not None]
+        for v in class0:
+            if abs(v - np.log(CLASSES)) > 0.3:
+                missed.append(f"{name}: epoch-0 class loss {v}, not within 0.3 of ln 5")
+        graph = model._graph[1]
+
+        def replay(model=model, graph=graph):
+            model._epoch_t.fill_(FAMILY_EPOCHS)
+            graph.replay()
+
+        (device_ms,), rounds = cuda_ms(torch, [replay], iters=10, reps=4, warmup=2)
+        (host_rate,) = samples_per_s(torch, [replay], 1, iters=10, reps=4)
+        torch.cuda.synchronize()
+        for i, n in enumerate((fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES)):
+            train_launches[i] += n
+
+        zero_counts(fused_mlp, ba)
+        served = serve_family(torch, model, ds, fused_mlp)
+        torch.cuda.synchronize()
+        launches = fused_counts(fused_mlp)
+        want = CLASSES if model.conditional_sampling else 0
+        check(launches == {"tensor_core": want, "simt": 0, "total": want}
+              and (ba.LAUNCHES, ba.ENTROPY_LAUNCHES) == (0, 0),
+              f"{name}: launches on the serving path {launches}, "
+              f"B2/B3 {(ba.LAUNCHES, ba.ENTROPY_LAUNCHES)}")
+        fast_launches += launches["total"]
+        report[name] = {
+            "graph_vs_eager_epoch1": {"max_abs_diff": err, "worst_err_over_tol": ratio,
+                                      "bitwise": bitwise},
+            "fit_epochs": FAMILY_EPOCHS, "fit_seconds_with_capture": seconds,
+            "steps_per_epoch": model._steps_per_epoch(),
+            "replay_device_ms_per_epoch": device_ms, "replay_device_ms_rounds": rounds[0],
+            "replay_epochs_per_s": host_rate,
+            "replay_steps_per_s": host_rate * model._steps_per_epoch(),
+            "class_loss_at_init": init_class,
+            "epoch0": {k: float(v[0]) for k, v in hist.items()},
+            "last10_mean": {k: float(v[-10:].mean()) for k, v in hist.items()},
+            "fused_launches": launches, **served}
+    return report, missed, train_launches, fast_launches
+
+
+def draw_moments(torch, trainer, seed):
+    """Adam moments drawn by numpy (count 3, |m| < 2e-4, v in [1e-8,
+    1e-6]), as the CPU tests' bank-against-serial fits start from."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for opt in trainer.optimizers.values():
+            for m, v in zip(opt.m, opt.v):
+                m.copy_(torch.as_tensor(rng.uniform(-2e-4, 2e-4, m.shape), dtype=torch.float32))
+                v.copy_(torch.as_tensor(rng.uniform(1e-8, 1e-6, v.shape), dtype=torch.float32))
+            opt.count.fill_(3)
+
+
+def bank_replay(bank, epoch):
+    """A replay of a fitted bank's captured epoch at `epoch`."""
+    banked = bank._bank[1]
+    graph = banked._graph[1]
+
+    def replay():
+        banked._epoch_t.fill_(epoch)
+        graph.replay()
+
+    return replay
+
+
+def bank_phase(torch, tp, tconfig, make_ds, fused_mlp, ba, counter, serial_ops):
+    """The `seed_bank` phase: strict CVAE-GAN banks on stand-ins made by
+    `make_ds(counts, seed)`: a captured banked epoch against the eager one
+    and each replica against its serial fit (K = len(BANK_MIXES)), then
+    the rate, device time and device ops of a replayed banked epoch for
+    each K of BANK_KS, and a replica's fast path. Returns (report,
+    training launches (fused, B2, B3), fast-path launches of B1)."""
+    from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
+
+    def bank_fit(dss, epochs, eager=False, drawn=False):
+        bank = SeedBank(tp.CVAEGAN, list(range(len(dss))),
+                        settings=train_settings(tconfig, epochs), device="cuda")
+        for t, ds in zip(bank.trainers, dss):
+            t.verbose = False
+            if drawn:
+                t._prepare(ds)
+                draw_moments(torch, t, t.seed)
+        bank.fit(list(dss), eager=eager)
+        torch.cuda.synchronize()
+        return bank
+
+    mixes = [make_ds(counts, seed) for seed, counts in enumerate(BANK_MIXES)]
+    timing_sets = [make_ds(BANK_MIXES[i % 3], 100 + i) for i in range(max(BANK_KS))]
+    zero_counts(fused_mlp, ba)
+    counter.reset()
+    captured = bank_fit(mixes, 1)
+    captured_calls = (counter.replays, counter.epochs)
+    counter.reset()
+    eager = bank_fit(mixes, 1, eager=True)
+    eager_calls = (counter.replays, counter.epochs)
+    check(captured_calls == (1, 1) and eager_calls == (0, 1),
+          f"bank: (replays, epoch calls) captured {captured_calls}, eager {eager_calls}")
+    worst, err, bitwise = 0.0, 0.0, True
+    for a, b in zip(captured.trainers, eager.trainers):
+        e, r, bw = compare_fits(torch, a, b)
+        err, worst, bitwise = max(err, e), max(worst, r), bitwise and bw
+    check(worst <= 1.0, f"bank: captured and eager banked epochs disagree ({worst})")
+
+    vs_serial = []
+    drawn = bank_fit(mixes, 1, drawn=True)
+    for seed, (t, ds) in enumerate(zip(drawn.trainers, mixes)):
+        serial = tp.CVAEGAN(seed=seed, device="cuda", settings=train_settings(tconfig, 1))
+        serial.verbose = False
+        serial._prepare(ds)
+        draw_moments(torch, serial, seed)
+        serial.fit(ds)
+        got = np.array([t.loss_history[k][0] for k in t.loss_keys])
+        want = np.array([serial.loss_history[k][0] for k in t.loss_keys])
+        e, r = close_enough(torch.tensor(got), torch.tensor(want), BANK_RTOL, BANK_ATOL)
+        state_err = max(float((x - y).abs().max()) for x, y in
+                        zip(state_tensors(t)[:-1], state_tensors(serial)[:-1]))
+        vs_serial.append({"epoch0_max_abs_diff": e, "epoch0_err_over_tol": r,
+                          "state_max_abs_diff_ungated": state_err,
+                          "classes": [int(c) for c in t._data["index"].present()]})
+        check(r <= 1.0, f"bank replica {seed}: epoch 0 differs from its serial fit ({r})")
+
+    timing = {}
+    for k in BANK_KS:
+        counter.reset()
+        bank = bank_fit(timing_sets[:k], BANK_TIMING_EPOCHS)
+        check((counter.replays, counter.epochs) == (BANK_TIMING_EPOCHS, 1),
+              f"bank K={k}: {counter.replays} replays, {counter.epochs} epoch calls")
+        for t in bank.trainers:
+            hist = np.asarray([t.loss_history[key] for key in t.loss_keys])
+            check(hist.shape == (len(t.loss_keys), BANK_TIMING_EPOCHS)
+                  and np.isfinite(hist).all(), f"bank K={k}: history {hist.shape}")
+        replay = bank_replay(bank, BANK_TIMING_EPOCHS)
+        (device_ms,), rounds = cuda_ms(torch, [replay], iters=10, reps=4, warmup=2)
+        (host_rate,) = samples_per_s(torch, [replay], 1, iters=10, reps=4)
+        steps = sum(t._steps_per_epoch() for t in bank.trainers)
+        prof = breakdown(torch, replay, 1e3 / host_rate, calls=2, top=6)
+        timing[k] = {"replay_device_ms_per_epoch": device_ms,
+                     "replay_device_ms_rounds": rounds[0],
+                     "replay_epochs_per_s": host_rate,
+                     "steps_per_epoch_all_replicas": steps,
+                     "aggregate_steps_per_s": host_rate * steps,
+                     "fit_seconds_with_capture": bank.fit_seconds,
+                     "fit_steps_per_s_with_capture": bank.steps_per_sec,
+                     "breakdown": prof}
+        last = bank
+    ops16 = timing[BANK_KS[-1]]["breakdown"].get("device_ops_per_call")
+    check(ops16 is not None and serial_ops is not None and ops16 < 2 * serial_ops,
+          f"bank K={BANK_KS[-1]}: {ops16} device ops per epoch against "
+          f"{serial_ops} of a serial epoch")
+    torch.cuda.synchronize()
+    train_launches = [fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES]
+
+    zero_counts(fused_mlp, ba)
+    fast = last.trainers[3].generate_samples_fast(0, SERVE_ROWS)
+    torch.cuda.synchronize()
+    launches = fused_counts(fused_mlp)
+    check(launches == {"tensor_core": 1, "simt": 0, "total": 1},
+          f"bank replica generate_samples_fast: launches {launches}")
+    check_samples(fast, SERVE_ROWS, "bank replica generate_samples_fast")
+    report = {"replicas": len(mixes), "class_counts": [
+                  np.bincount(ds.tr_labels, minlength=CLASSES).tolist() for ds in mixes],
+              "graph_vs_eager_epoch1": {"max_abs_diff": err, "worst_err_over_tol": worst,
+                                        "bitwise": bitwise},
+              "replica_vs_serial_epoch1": vs_serial,
+              "rtol": BANK_RTOL, "atol": BANK_ATOL,
+              "serial_epoch_device_ops": serial_ops, "timing_by_k": timing,
+              "replica_fast_launches": launches}
+    return report, train_launches, launches["total"]
+
 
 def main() -> int:
     import torch
@@ -866,13 +1187,14 @@ def main() -> int:
     import pickle
     import tempfile
 
-    from cvaegan_tpu_torch.algorithms.cvae_gan import CVAEGAN as TrainerClass
+    import cvaegan_tpu_torch as tp
+    from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
     from cvaegan_tpu_torch.core import config as tconfig
     from cvaegan_tpu_torch.data.tabular import TabularDataset, minmax_scale
     from cvaegan_tpu_torch.pipelines.balance import run_balance_pipeline
 
     ds = standin_dataset(TabularDataset, minmax_scale)
-    counter = ReplayCounter(torch, TrainerClass)
+    counter = ReplayCounter(torch, GenerativeTrainer)
 
     def fitted(epochs, eager=False, balanced=False):
         m = CVAEGAN(seed=0, device="cuda", settings=train_settings(tconfig, epochs),
@@ -978,7 +1300,6 @@ def main() -> int:
             "fit_epochs_per_s_with_capture":
                 GAN_EPOCHS / train_report[mode]["fit_seconds_with_capture"],
             "steps_per_epoch": STEPS_PER_EPOCH[mode]}
-    counter.restore()
     eager_model = fitted(1, eager=True)
 
     def eager_epoch(model_=eager_model):
@@ -993,10 +1314,34 @@ def main() -> int:
     emit({"phase": "timing", "training": "cvae_gan", **train_timing})
 
     replay_fn, replay_call_ms = replay_ms["strict"]
+    serial_break = breakdown(torch, replay_fn, replay_call_ms, calls=3, top=8)
     emit({"phase": "breakdown", "call": "replayed strict epoch", "card": card,
-          **breakdown(torch, replay_fn, replay_call_ms, calls=3, top=8)})
+          **serial_break})
     emit({"phase": "breakdown", "call": "eager strict epoch", "card": card,
           **breakdown(torch, eager_epoch, 1e3 / eager_rate, calls=2, top=8)})
+
+    # 8. the other MLP trainers ---------------------------------------------
+    family, family_missed, family_train, family_fast = family_phase(
+        torch, tp, tconfig, ds, fused_mlp, ba, counter)
+    emit({"phase": "family", "card": card, "rows": len(ds.tr_labels),
+          "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL, "trainers": family,
+          "training_launches_fused_b2_b3": family_train,
+          "fast_path_launches": family_fast, "gates_missed": family_missed})
+    check(not family_missed, "; ".join(family_missed))
+
+    # 9. SeedBank -----------------------------------------------------------
+    bank, bank_train, bank_fast = bank_phase(
+        torch, tp, tconfig,
+        lambda counts, seed: standin_dataset(TabularDataset, minmax_scale, counts, seed),
+        fused_mlp, ba, counter, serial_break.get("device_ops_per_call"))
+    counter.restore()
+    emit({"phase": "seed_bank", "card": card, "trainer": "cvae_gan", "mode": "strict",
+          **bank, "training_launches_fused_b2_b3": bank_train})
+    check(family_train == [0, 0, 0] and bank_train == [0, 0, 0],
+          f"kernels launched on the family or bank training paths (fused, B2, B3): "
+          f"{family_train}, {bank_train}")
+    training_launches = tuple(a + b + c for a, b, c in
+                              zip(training_launches, family_train, bank_train))
 
     def attention_entry(name, replaces, launches_, entropy, library):
         t1, t2 = attn_timing["t1"], attn_timing["t2"]
@@ -1027,7 +1372,10 @@ def main() -> int:
         {"name": "fused_mlp4", "route": "cuda",
          "source": "cvaegan_tpu_torch/csrc/fused_mlp4.cu",
          "replaces": "cvaegan_tpu/kernels/fused_mlp.py:44",
-         "launches": launches["total"], "launches_by_variant": launches,
+         "launches": launches["total"] + family_fast + bank_fast,
+         "launches_by_path": {"cvae_gan": launches["total"], "cgan_cvae": family_fast,
+                              "seed_bank_replica": bank_fast},
+         "launches_by_variant": launches,
          "training_launches": training_launches[0],
          "max_abs_err": mlp_stats["tensor_core"]["max_abs_err"],
          "err_over_tol_f64": mlp_stats["tensor_core"]["err_over_tol"],

@@ -8,10 +8,15 @@ kernels become CUDA kernels written for Hopper (`csrc/`, built at first
 use). Importing the package does not touch CUDA.
 """
 
+from cvaegan_tpu_torch.algorithms.cgan import CGAN
+from cvaegan_tpu_torch.algorithms.cvae import CVAE
 from cvaegan_tpu_torch.algorithms.cvae_gan import CVAEGAN
+from cvaegan_tpu_torch.algorithms.gan import GAN
 from cvaegan_tpu_torch.algorithms.rain_gan import RAIN_GAN
+from cvaegan_tpu_torch.algorithms.vae import VAE
+from cvaegan_tpu_torch.algorithms.vae_gan import VAEGAN
 from cvaegan_tpu_torch.eval.classifier import Classifier
 
 __version__ = "0.1.0"
 
-__all__ = ["CVAEGAN", "Classifier", "RAIN_GAN"]
+__all__ = ["CGAN", "CVAE", "CVAEGAN", "Classifier", "GAN", "RAIN_GAN", "VAE", "VAEGAN"]

@@ -22,6 +22,13 @@ the trainer's generator is registered with the graph, so each replay
 draws fresh noise. Running the same epoch function without capture is the
 plain version: it is what runs on the CPU, and on CUDA only when `fit` is
 asked for it with `eager=True`. A failed capture raises.
+
+The steps are written once for a trainer and for a seed bank of K of them
+(`algorithms/seed_bank.py`): batches are concatenated and split on the
+batch axis counted from the end, the losses keep leading axes, and every
+random input comes from the draw methods (`_sample_batch`,
+`_sample_labels`, `_random_batch`, `_prior`, `_labels`) and the class
+rounds from `_rounds`, which the bank replaces by per-replica versions.
 """
 
 from __future__ import annotations
@@ -35,15 +42,26 @@ from torch import nn
 
 from cvaegan_tpu_torch import convert
 from cvaegan_tpu_torch.core import config as config_lib
-from cvaegan_tpu_torch.core.state import Adam, resolve_device
+from cvaegan_tpu_torch.core import losses
+from cvaegan_tpu_torch.core.schedules import progressive_lambda
+from cvaegan_tpu_torch.core.state import (
+    Adam,
+    adam,
+    apply_eval,
+    apply_train,
+    grad_update,
+    resolve_device,
+)
 from cvaegan_tpu_torch.data.sampler import (
     ClassIndex,
     present_labels,
     sample_balanced_batch,
     sample_class_batch,
+    sample_random_batch,
 )
 from cvaegan_tpu_torch.data.tabular import TabularDataset
 from cvaegan_tpu_torch.kernels import fused_mlp as fused
+from cvaegan_tpu_torch.models import mlp
 from cvaegan_tpu_torch.models.layers import one_hot
 
 QUALIFIED_PATIENCE = 20
@@ -60,14 +78,18 @@ def _as_arrays(dataset) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class GenerativeTrainer:
-    """Base class. Subclasses set `name`, `config_key` and `loss_keys` and
-    implement `_build`, `_build_optimizers`, `_jax_dims`, `_epoch_body`,
-    `_warm_up`, `_generator_forward` and, where they have one,
-    `_classifier_logits`."""
+    """Base class. Subclasses set `name`, `config_key`, `loss_keys` and
+    `loops` and implement `_build`, `_jax_dims` and `_round` (one class
+    round of D/C/G steps); the epoch, the warm-up before capture, the
+    optimizers and the conditional generator's serving are the base's
+    unless a subclass overrides them."""
 
     name: str = "base"
     config_key: str = ""
     loss_keys: Tuple[str, ...] = ()
+    #: the kinds of optimizer step of one class round, each run
+    #: `settings.gan.<kind>_loop_num` times
+    loops: Tuple[str, ...] = ()
     #: epochs whose losses come back to the host in one transfer.
     epoch_chunk: int = 500
     #: set False to silence the progress prints.
@@ -75,6 +97,8 @@ class GenerativeTrainer:
     #: per-chunk checkpoints are ROADMAP item A19; `fit` raises if set.
     checkpoint_dir = None
     conditional_sampling: bool = True
+    #: the network that maps z (and labels) to samples
+    decoder_name: str = "generator"
 
     def __init__(self, seed: Optional[int] = None,
                  settings: Optional[config_lib.Settings] = None,
@@ -102,6 +126,9 @@ class GenerativeTrainer:
         self.optimizers: Dict[str, Adam] = {}
         self._data: Optional[Dict] = None
         self.loss_history: Dict[str, list] = {k: [] for k in self.loss_keys}
+        #: candidate capacities of qualified generation since the state
+        #: last changed (see `generate_qualified_samples`)
+        self._qualified_caps: set = set()
         #: the epoch number and the epoch's losses, on the device: a
         #: captured epoch reads the one and writes the other
         self._epoch_t = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -116,22 +143,40 @@ class GenerativeTrainer:
         raise NotImplementedError
 
     def _build_optimizers(self, nets: Dict[str, nn.Module]) -> Dict[str, Adam]:
-        """One optimizer per trained network."""
-        return {}
+        """One Adam per trained network: `g_lr` for the encoder and the
+        generator or decoder, `d_lr` for the critic, `c_lr` for the
+        companion classifier, betas `adam_b1`/`adam_b2`."""
+        cfg = self.gan_cfg
+        lrs = {"encoder": cfg.g_lr, "generator": cfg.g_lr, "decoder": cfg.g_lr,
+               "discriminator": cfg.d_lr, "classifier": cfg.c_lr}
+        return {k: adam(net, lrs[k], cfg.adam_b1, cfg.adam_b2)
+                for k, net in nets.items() if k in lrs}
 
     @staticmethod
-    def _jax_dims(tree) -> Tuple[int, int, int]:
-        """(feature_num, label_num, z_size) of the JAX trainer's state tree."""
+    def _jax_dims(tree) -> Tuple[int, Optional[int], int]:
+        """(feature_num, label_num, z_size) of the JAX trainer's state tree;
+        label_num is None where no network of the tree depends on it."""
         raise NotImplementedError
 
-    def _epoch_body(self, epoch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One training epoch at the epoch number `epoch` (a device scalar);
-        returns the epoch's scalar losses by `loss_keys`."""
+    def _round(self, class_id: Optional[int], epoch: torch.Tensor,
+               counts: Dict[str, int]) -> Dict[str, torch.Tensor]:
+        """One class round at the epoch number `epoch` (a device scalar):
+        `counts[kind]` steps of each kind of `loops`, in order, every
+        random input drawn through the draw methods. Returns the losses of
+        its last step by `loss_keys`."""
         raise NotImplementedError(f"{self.name}: training is not ported yet")
+
+    def _epoch_body(self, epoch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One training epoch: every class round with each kind of step
+        run `settings.gan.<kind>_loop_num` times; the losses are the last
+        round's."""
+        cfg = self.gan_cfg
+        counts = {kind: getattr(cfg, f"{kind}_loop_num") for kind in self.loops}
+        return self._rounds(lambda class_id: self._round(class_id, epoch, counts))
 
     def _warm_up(self) -> None:
         """One optimizer step of each kind the epoch runs, before capture."""
-        raise NotImplementedError
+        self._round(self._class_rounds()[0], self._epoch_t, dict.fromkeys(self.loops, 1))
 
     def _build_state(self) -> nn.ModuleDict:
         """`_build`, the optional EMA-filter copy of the classifier, and the
@@ -141,7 +186,14 @@ class GenerativeTrainer:
             nets["classifier_ema"] = copy.deepcopy(nets["classifier"])
         self.optimizers = self._build_optimizers(nets)
         self._graph = None
+        self._clear_gen_caches()
         return nn.ModuleDict(nets)
+
+    def _clear_gen_caches(self) -> None:
+        """Forget the qualified-generation capacities: the state changed
+        (a fit ended, or the state was built, loaded or handed over by a
+        seed bank), as the JAX package drops its generation programs."""
+        self._qualified_caps.clear()
 
     def _filter_state(self, state):
         """State used by the qualified-sample FILTER: the EMA classifier
@@ -152,13 +204,23 @@ class GenerativeTrainer:
 
     def _generator_forward(self, state, z: torch.Tensor,
                            labels: torch.Tensor) -> torch.Tensor:
-        """Eval-mode generator forward -> samples [n, feature_num]."""
-        raise NotImplementedError
+        """Eval-mode generator forward -> samples [n, feature_num]: the
+        conditional `generator`'s, unless a subclass has another."""
+        x, _ = apply_eval(state["generator"], z, labels)
+        return x
 
     def _classifier_logits(self, state, x: torch.Tensor) -> Optional[torch.Tensor]:
         """Eval-mode companion-classifier logits, or None if the algorithm
         has no companion classifier."""
-        return None
+        if "classifier" not in state:
+            return None
+        return apply_eval(state["classifier"], x)
+
+    def _lambda_class(self, epoch: torch.Tensor) -> torch.Tensor:
+        """The generator's class-loss weight at `epoch`: 0 before epoch
+        200, a linear ramp to `lambda_class` at 500 (reference
+        `src/cvae_gan.py:198-204`)."""
+        return progressive_lambda(epoch, self.hparams["lambda_class"], 200, 500)
 
     # ------------------------------------------------------------- sampling
     def _sample_batch(self, class_id: Optional[int]):
@@ -181,6 +243,13 @@ class GenerativeTrainer:
             return present_labels(self.generator, (bs,), self._data["index"])
         return self._labels(class_id, bs)
 
+    def _random_batch(self):
+        """(x_real, labels): a uniform batch over the whole train set, for
+        the unconditional family."""
+        data = self._data
+        return sample_random_batch(self.generator, data["samples"], data["labels"],
+                                   self.gan_cfg.batch_size)
+
     def _class_rounds(self) -> List[Optional[int]]:
         """The class rounds of one epoch: one mixed round (None) in
         balanced_mode, else one round per PRESENT class in order. The JAX
@@ -191,6 +260,70 @@ class GenerativeTrainer:
         if self.balanced_mode:
             return [None]
         return [int(c) for c in self._data["index"].present()]
+
+    def _rounds(self, round_fn):
+        """`round_fn(class_id)` for each class round of the epoch, in order;
+        returns the last round's losses."""
+        out = None
+        for class_id in self._class_rounds():
+            out = round_fn(class_id)
+        return out
+
+    def _steps_per_epoch(self) -> int:
+        """Optimizer steps of one epoch."""
+        cfg = self.gan_cfg
+        per_round = sum(getattr(cfg, f"{kind}_loop_num") for kind in self.loops)
+        return len(self._class_rounds()) * per_round
+
+    def _generators(self) -> List[torch.Generator]:
+        """Every generator an epoch draws from (a seed bank has one per
+        replica)."""
+        return [self.generator]
+
+    # ---------------------------------------------------------------- steps
+    # The critic and companion-classifier steps the adversarial trainers
+    # share; `y` is None for an unconditional critic.
+    def _fake(self, z: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
+        """Generator output in train mode under no-grad: its BatchNorm
+        statistics update (torch `.train()` + `no_grad`,
+        `src/cvae_gan.py:110-113`)."""
+        x_fake, _ = apply_train(self.state["generator"], z, y)
+        return x_fake
+
+    def _d_step(self, x_real, y, z) -> torch.Tensor:
+        """Critic update: -E[D(x,y)] + E[D(G(z,y),y)] (reference
+        `src/cvae_gan.py:104-128`), one forward over concat(real, fake)
+        with one spectral power iteration, as in the JAX package."""
+        x_fake = self._fake(z, y)
+        dis = self.state["discriminator"].train()
+        yy = None if y is None else torch.cat([y, y], dim=-1)
+
+        def loss_fn():
+            scores, _ = dis(torch.cat([x_real, x_fake], dim=-2), yy, self.generator)
+            d_real, d_fake = scores.chunk(2, dim=-2)
+            return losses.wasserstein_d_loss(d_real, d_fake), None
+
+        loss, _ = grad_update(self.optimizers["discriminator"], loss_fn)
+        return loss.detach()
+
+    def _c_step(self, x_real, y, z=None) -> torch.Tensor:
+        """Companion-classifier update: CE(real) + CE(fake) over one fused
+        forward (reference `src/cvae_gan.py:131-157`), or CE(real) alone
+        when `z` is None (the auxiliary classifier of the unconditional
+        family, `src/gan.py:102-114`)."""
+        x = x_real if z is None else torch.cat([x_real, self._fake(z, y)], dim=-2)
+        clf = self.state["classifier"].train()
+
+        def loss_fn():
+            logits = clf(x, self.generator)
+            if z is None:
+                return losses.cross_entropy(logits, y), None
+            real_logits, fake_logits = logits.chunk(2, dim=-2)
+            return (losses.cross_entropy(real_logits, y)
+                    + losses.cross_entropy(fake_logits, y)), None
+
+        loss, _ = grad_update(self.optimizers["classifier"], loss_fn)
+        return loss.detach()
 
     # ---------------------------------------------------------------- setup
     def _prepare(self, dataset) -> None:
@@ -224,6 +357,8 @@ class GenerativeTrainer:
         optimizer), building the networks from the tree's shapes if
         needed."""
         feature_num, label_num, z_size = self._jax_dims(tree)
+        if label_num is None:  # no network of the tree knows the classes
+            label_num = self.label_num
         if z_size != self.gan_cfg.z_size:
             raise ValueError(f"the tree's generator takes z of {z_size}, "
                              f"settings.gan.z_size is {self.gan_cfg.z_size}")
@@ -232,6 +367,7 @@ class GenerativeTrainer:
             self.feature_num, self.label_num = feature_num, label_num
             self.state = self._build_state()
         convert.state_from_jax(tree, self.state, self.optimizers)
+        self._clear_gen_caches()
 
     def _require_state(self) -> None:
         config_lib.check_compute_dtype(self.gan_cfg)
@@ -272,7 +408,7 @@ class GenerativeTrainer:
             run = self._epoch
         else:
             run = self._captured_epoch()
-        history = torch.zeros((chunk, len(self.loss_keys)), device=self.device)
+        history = torch.zeros((chunk, *self._losses_out.shape), device=self.device)
         e = 0
         while e < epochs:
             n = min(chunk, epochs - e)
@@ -289,6 +425,7 @@ class GenerativeTrainer:
                                      for j, k in enumerate(self.loss_keys))
                     print(f"{self.name} epoch {e + i}/{epochs}, {head}")
             e += n
+        self._clear_gen_caches()
 
     def _epoch(self) -> None:
         """One epoch at `self._epoch_t`: the body, its losses into
@@ -312,18 +449,23 @@ class GenerativeTrainer:
             tensors += opt.tensors()
         return [*tensors, self._losses_out]
 
+    def _host_counts(self) -> np.ndarray:
+        """The class sizes of the data, on the host."""
+        return self._data["index"].host_counts
+
     def _capture_key(self):
         cfg = self.gan_cfg
         return (id(self.state), id(self._data["samples"]), self.balanced_mode,
                 tuple(self._class_rounds()),
-                tuple(self._data["index"].host_counts.tolist()),
+                tuple(self._host_counts().ravel().tolist()),
                 cfg.batch_size, cfg.d_loop_num, cfg.c_loop_num, cfg.g_loop_num,
                 tuple(sorted(self.hparams.items())), self.ema_decay)
 
     def _captured_epoch(self):
         """The replay of this trainer's captured epoch, capturing it first
         unless a capture for the same state, data, mode, class rounds and
-        settings exists."""
+        settings exists. The warm-up's effects on the state and on every
+        generator are undone before the capture."""
         key = self._capture_key()
         if self._graph is not None and self._graph[0] == key:
             return self._graph[1].replay
@@ -338,16 +480,19 @@ class GenerativeTrainer:
         static = self._static_tensors()
         with torch.no_grad():
             saved = [t.detach().clone() for t in static]
-        rng_state = self.generator.get_state()
+        generators = self._generators()
+        rng_states = [g.get_state() for g in generators]
         with torch.cuda.stream(stream):
             self._warm_up()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         with torch.no_grad():
             for t, s in zip(static, saved):
                 t.copy_(s)
-        self.generator.set_state(rng_state)
+        for g, rng_state in zip(generators, rng_states):
+            g.set_state(rng_state)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
+        for g in generators:
+            graph.register_generator_state(g)
         with torch.cuda.graph(graph, stream=stream):
             self._epoch()
         self._graph = (key, graph)
@@ -368,9 +513,13 @@ class GenerativeTrainer:
         """Prior sampling through the fused generator kernel
         (`kernels/fused_mlp.py`): eval-mode BatchNorm folded into the
         matmuls, all four layers in one launch. The final activation is
-        the generator's own. Only available for the standard MLP
-        generator; raises NotImplementedError otherwise."""
+        the generator's own. Only available for the standard conditional
+        MLP generator; raises NotImplementedError otherwise."""
         self._require_state()
+        if not self.conditional_sampling:
+            raise NotImplementedError(
+                f"{self.name}: the fused kernel serves the conditional generator "
+                "only (its input is concat(z, onehot(y))); use generate_samples()")
         gen = self.state["generator"]
         labels = self._labels(target_label, num)
         z = self._prior(num)
@@ -393,17 +542,25 @@ class GenerativeTrainer:
         threshold AND argmax == target_label; give up once a cumulative
         budget of 20 zero-survivor candidate batches is spent (never
         refunded on success). Candidate batches are min(4096, capacity)
-        rows, where the capacity is the smallest power of two >=
-        max(num, 256), as in the JAX package. A host loop drives one
+        rows. As in the JAX package, which keeps one compiled program per
+        capacity, the capacity is the smallest one used since the state
+        last changed that is >= num, else the smallest power of two >=
+        max(num, 256): the pipeline asks for the largest need first, so
+        every class draws batches of that size. A host loop drives one
         candidate batch per iteration on the device."""
         self._require_state()
         if confidence_threshold is None:
             confidence_threshold = self.hparams.get("confidence_threshold", 0.5)
         if num <= 0:
             return np.empty((0, self.feature_num), np.float32)
-        cap = 256
-        while cap < num:
-            cap *= 2
+        fits = [c for c in self._qualified_caps if c >= num]
+        if fits:
+            cap = min(fits)
+        else:
+            cap = 256
+            while cap < num:
+                cap *= 2
+            self._qualified_caps.add(cap)
         cand = min(4096, cap)
         labels = self._labels(target_label, cand)
         fstate = self._filter_state(self.state)
@@ -430,6 +587,19 @@ class GenerativeTrainer:
         `src/cvae_gan.py:380-397`). Only meaningful for VAE-family models;
         others raise."""
         raise NotImplementedError(f"{self.name} has no encoder")
+
+    @torch.no_grad()
+    def _reconstruct(self, samples, labels) -> np.ndarray:
+        """Encode with reparameterisation, then decode; `labels` is None for
+        the unconditional family."""
+        self._require_state()
+        x = torch.as_tensor(np.asarray(samples, np.float32), device=self.device)
+        y = None if labels is None else torch.as_tensor(
+            np.asarray(labels, np.int64), device=self.device)
+        mu, log_var = apply_eval(self.state["encoder"], x, y)
+        z = mlp.reparameterize(mu, log_var, self.generator)
+        out, _ = apply_eval(self.state[self.decoder_name], z, y)
+        return out.cpu().numpy()
 
     # ---------------------------------------------------------- diagnostics
     def get_feature_importance(self, net: str = "discriminator"):
@@ -487,3 +657,29 @@ class GenerativeTrainer:
         plt.close()
         print(f"loss curves saved to {out} and {out2}")
         return out
+
+
+class UnconditionalTrainer(GenerativeTrainer):
+    """The unconditional family (GAN, VAE, VAE-GAN): one round per epoch on
+    uniform batches over the whole train set, a decoder (`decoder_name`)
+    that takes z alone, and `generate_samples(num)` without a label
+    (reference `src/gan.py`, `src/vae.py`, `src/vae_gan.py`).
+    `generate_qualified_samples(label, num)` filters the decoder's output
+    through the auxiliary classifier, where there is one."""
+
+    conditional_sampling = False
+
+    def _class_rounds(self) -> List[Optional[int]]:
+        return [None]
+
+    def _generator_forward(self, state, z, labels):
+        x, _ = apply_eval(state[self.decoder_name], z)
+        return x
+
+    @torch.no_grad()
+    def generate_samples(self, num: int) -> np.ndarray:  # type: ignore[override]
+        """Sample `num` rows from the prior (reference
+        `src/gan.py:generate_samples`), as float32 numpy."""
+        self._require_state()
+        out = self._generator_forward(self.state, self._prior(num), None)
+        return out.to(torch.float32).cpu().numpy()

@@ -30,16 +30,7 @@ from torch import nn
 from cvaegan_tpu_torch import convert
 from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
 from cvaegan_tpu_torch.core import losses
-from cvaegan_tpu_torch.core.schedules import progressive_lambda
-from cvaegan_tpu_torch.core.state import (
-    Adam,
-    adam,
-    apply_eval,
-    apply_train,
-    grad_update,
-    grad_update_pair,
-    init_net,
-)
+from cvaegan_tpu_torch.core.state import grad_update_pair, init_net
 from cvaegan_tpu_torch.models import mlp
 
 
@@ -47,6 +38,7 @@ class CVAEGAN(GenerativeTrainer):
     name = "cvae_gan"
     config_key = "cvae_gan"
     loss_keys = ("recon_loss", "kl_loss", "adv_loss", "class_loss")
+    loops = ("d", "c", "g")
 
     # ------------------------------------------------------------- build
     def _build(self, init_generator: torch.Generator) -> Dict[str, nn.Module]:
@@ -62,53 +54,9 @@ class CVAEGAN(GenerativeTrainer):
         }
         return {k: init_net(v, init_generator, self.device) for k, v in nets.items()}
 
-    def _build_optimizers(self, nets: Dict[str, nn.Module]) -> Dict[str, Adam]:
-        cfg = self.gan_cfg
-        lrs = {"encoder": cfg.g_lr, "generator": cfg.g_lr,
-               "discriminator": cfg.d_lr, "classifier": cfg.c_lr}
-        return {k: adam(nets[k], lr, cfg.adam_b1, cfg.adam_b2) for k, lr in lrs.items()}
-
     _jax_dims = staticmethod(convert.cvaegan_dims)
 
     # ------------------------------------------------------------- steps
-    def _fake(self, z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Generator output in train mode under no-grad: its BatchNorm
-        statistics update (torch `.train()` + `no_grad`,
-        `src/cvae_gan.py:110-113`)."""
-        x_fake, _ = apply_train(self.state["generator"], z, y)
-        return x_fake
-
-    def _d_step(self, x_real, y, z) -> torch.Tensor:
-        """Critic update: -E[D(x,y)] + E[D(G(z,y),y)] (reference
-        `src/cvae_gan.py:104-128`), one forward over concat(real, fake)
-        with one spectral power iteration, as in the JAX package."""
-        x_fake = self._fake(z, y)
-        dis = self.state["discriminator"].train()
-
-        def loss_fn():
-            scores, _ = dis(torch.cat([x_real, x_fake]), torch.cat([y, y]),
-                            self.generator)
-            d_real, d_fake = scores.chunk(2)
-            return losses.wasserstein_d_loss(d_real, d_fake), None
-
-        loss, _ = grad_update(self.optimizers["discriminator"], loss_fn)
-        return loss.detach()
-
-    def _c_step(self, x_real, y, z) -> torch.Tensor:
-        """Companion-classifier update: CE(real) + CE(fake) over one fused
-        forward (reference `src/cvae_gan.py:131-157`)."""
-        x_fake = self._fake(z, y)
-        clf = self.state["classifier"].train()
-
-        def loss_fn():
-            logits = clf(torch.cat([x_real, x_fake]), self.generator)
-            real_logits, fake_logits = logits.chunk(2)
-            return (losses.cross_entropy(real_logits, y)
-                    + losses.cross_entropy(fake_logits, y)), None
-
-        loss, _ = grad_update(self.optimizers["classifier"], loss_fn)
-        return loss.detach()
-
     def _g_step(self, x_real, y, z_prior, eps, lam_class) -> Dict[str, torch.Tensor]:
         """Joint encoder + generator update (reference
         `src/cvae_gan.py:159-216`): recon MSE + KL on z_enc = mu + eps
@@ -148,49 +96,22 @@ class CVAEGAN(GenerativeTrainer):
         eps = self._prior(self.gan_cfg.batch_size)
         return x_real, y, z_prior, eps
 
-    def _lambda_class(self, epoch: torch.Tensor) -> torch.Tensor:
-        return progressive_lambda(epoch, self.hparams["lambda_class"], 200, 500)
-
-    def _epoch_body(self, epoch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """D x5, C x5, G x3 per class round (`cvae_gan.py:230-262` of the
+    def _round(self, class_id, epoch, counts):
+        """D, C, then G steps on the class (`cvae_gan.py:230-262` of the
         JAX package); every batch, z and eps drawn from the trainer's
-        generator. The losses are the last round's last G step's."""
-        cfg = self.gan_cfg
-        bs = cfg.batch_size
+        generator."""
+        bs = self.gan_cfg.batch_size
         lam = self._lambda_class(epoch)
-        out = None
-        for class_id in self._class_rounds():
-            for _ in range(cfg.d_loop_num):
-                self._d_step(*self._sample_batch(class_id), self._prior(bs))
-            for _ in range(cfg.c_loop_num):
-                self._c_step(*self._sample_batch(class_id), self._prior(bs))
-            for _ in range(cfg.g_loop_num):
-                out = self._g_step(*self._g_inputs(class_id), lam)
+        for _ in range(counts["d"]):
+            self._d_step(*self._sample_batch(class_id), self._prior(bs))
+        for _ in range(counts["c"]):
+            self._c_step(*self._sample_batch(class_id), self._prior(bs))
+        for _ in range(counts["g"]):
+            out = self._g_step(*self._g_inputs(class_id), lam)
         return out
 
-    def _warm_up(self) -> None:
-        class_id = self._class_rounds()[0]
-        bs = self.gan_cfg.batch_size
-        self._d_step(*self._sample_batch(class_id), self._prior(bs))
-        self._c_step(*self._sample_batch(class_id), self._prior(bs))
-        self._g_step(*self._g_inputs(class_id), self._lambda_class(self._epoch_t))
-
     # --------------------------------------------------------- generation
-    def _generator_forward(self, state, z, labels):
-        x, _ = apply_eval(state["generator"], z, labels)
-        return x
-
-    def _classifier_logits(self, state, x):
-        return apply_eval(state["classifier"], x)
-
-    @torch.no_grad()
     def reconstruct_samples(self, samples, labels) -> np.ndarray:
         """Encode with reparameterisation, then decode (reference
         `src/cvae_gan.py:380-397`)."""
-        self._require_state()
-        x = torch.as_tensor(np.asarray(samples, np.float32), device=self.device)
-        y = torch.as_tensor(np.asarray(labels, np.int64), device=self.device)
-        mu, log_var = apply_eval(self.state["encoder"], x, y)
-        z = mlp.reparameterize(mu, log_var, self.generator)
-        out, _ = apply_eval(self.state["generator"], z, y)
-        return out.cpu().numpy()
+        return self._reconstruct(samples, labels)

@@ -52,10 +52,6 @@ class RAIN_GAN(GenerativeTrainer):
         return {k: init_net(v, init_generator, self.device) for k, v in nets.items()}
 
     # --------------------------------------------------------- generation
-    def _generator_forward(self, state, z, labels):
-        x, _ = apply_eval(state["generator"], z, labels)
-        return x
-
     def _classifier_logits(self, state, x):
         logits, _ = apply_eval(state["classifier"], x)
         return logits

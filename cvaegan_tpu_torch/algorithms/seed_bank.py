@@ -1,0 +1,338 @@
+"""Seed-parallel training: K independent replicas in one captured epoch,
+the counterpart of `cvaegan_tpu/algorithms/seed_bank.py`.
+
+A strict CVAE-GAN epoch is ~25k small kernels, so on a GPU a fit is
+bound by the kernel count, not by the arithmetic. `SeedBank` trains K
+replicas of one trainer class (one per seed) with each kernel run once
+for all of them: the replicas' networks are stacked into banked networks
+whose tensors carry a leading replica axis (`models/banked.py`), and the
+trainer's own epoch (`_epoch_body`, its D, C and G steps) runs on
+`[K, batch, features]` operands, each matmul one batched matmul over K.
+The JAX package gets the same by `vmap`ping the epoch. On CUDA the whole
+banked epoch is captured as one CUDA graph and replayed once per epoch,
+as a trainer's `fit` does.
+
+What each replica sees is its serial fit's:
+  * random draws: each replica keeps its trainer's own `torch.Generator`,
+    seeded as its serial trainer, and draws every input (batch indices,
+    z, eps, dropout masks) in the same order and at the same shapes as a
+    serial `fit`, into its slice of a `[K, ...]` buffer; all K
+    generators are registered with the graph;
+  * losses: each replica's loss is the mean over its own batch; the
+    backward pass takes their sum, so each replica's parameters get the
+    gradient of their own loss alone; Adam is per replica, with a step
+    count `[K]`;
+  * data: replicas may hold different datasets of one shape (the
+    multi-seed study's per-seed fixtures); each draws with its own class
+    sizes, from index tables padded to the widest;
+  * absent classes in strict mode: a class round runs when any replica
+    has the class; a replica that lacks it keeps its whole state through
+    the round (parameters, BatchNorm statistics, spectral u/v, Adam
+    moments and count) and draws nothing, and its history records its
+    last present round's losses, as JAX's `_guard_class_round` does.
+
+After `fit`, `trainers[k]` is a full trainer of `seeds[k]` with the whole
+per-trainer API. Epoch-cadenced host hooks (`_on_chunk_end`) are skipped
+in bank mode, as in the JAX package. Sharding the replica axis over
+devices (`mesh=`) is not ported (ROADMAP A21).
+
+    bank = SeedBank(CVAEGAN, seeds=range(16), balanced_mode=True)
+    trainers = bank.fit(datasets)          # one dataset, or one per seed
+    trainers[7].generate_samples_fast(2, 8192)
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
+from cvaegan_tpu_torch.core import config as config_lib
+from cvaegan_tpu_torch.core.state import Adam
+from cvaegan_tpu_torch.data.sampler import INT32_MAX
+from cvaegan_tpu_torch.models import banked
+
+
+class _Banked:
+    """Mixin over a trainer class: the class's own steps and epoch on K
+    replicas at once. Its draw methods and `_rounds` replace the
+    trainer's; the networks, optimizers, generator and data are the
+    banked ones `_build_bank` sets."""
+
+    def _generators(self) -> List[torch.Generator]:
+        return self.generator.generators
+
+    # ------------------------------------------------------------ draws
+    def _prior(self, num: int) -> torch.Tensor:
+        return self.generator.randn((num, self.gan_cfg.z_size))
+
+    def _labels(self, target_label: int, num: int) -> torch.Tensor:
+        return torch.full((self._k, num), int(target_label), dtype=torch.int64,
+                          device=self.device)
+
+    def _rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """Rows `idx [K, n]` of each replica's samples -> `[K, n, features]`."""
+        return self._data["samples"][self._replica_ids, idx]
+
+    def _present_labels(self, num: int) -> torch.Tensor:
+        """`sampler.present_labels` per replica: uniform over its present
+        classes, through its order table (the identity when all are
+        present)."""
+        raw = self.generator.randint(self._data["label_highs"], (num,))
+        return self._data["order"].gather(1, raw)
+
+    def _sample_batch(self, class_id: Optional[int]):
+        bs, data = self.gan_cfg.batch_size, self._data
+        if self.balanced_mode:
+            labels = self._present_labels(bs)
+            counts = torch.clamp_min(data["counts"].gather(1, labels), 1)
+            r = self.generator.randint([INT32_MAX] * self._k, (bs,))
+            return self._rows(data["table"][self._replica_ids, labels, r % counts]), labels
+        highs = [max(int(c), 1) for c in self._host_counts()[:, class_id]]
+        r = self.generator.randint(highs, (bs,))
+        return self._rows(data["table"][:, class_id].gather(1, r)), self._labels(class_id, bs)
+
+    def _sample_labels(self, class_id: Optional[int]) -> torch.Tensor:
+        bs = self.gan_cfg.batch_size
+        if self.balanced_mode:
+            return self._present_labels(bs)
+        return self._labels(class_id, bs)
+
+    def _random_batch(self):
+        n = self._data["samples"].shape[1]
+        r = self.generator.randint([n] * self._k, (self.gan_cfg.batch_size,))
+        return self._rows(r), self._data["labels"].gather(1, r)
+
+    def _host_counts(self) -> np.ndarray:
+        return self._data["host_counts"]
+
+    # ----------------------------------------------------------- rounds
+    def _class_rounds(self) -> List[Optional[int]]:
+        return self._union_rounds
+
+    def _rounds(self, round_fn):
+        """Every round any replica has. In a round that some replicas lack,
+        those draw nothing and get their state back afterwards, and their
+        losses stay those of their last present round."""
+        out = None
+        for class_id in self._union_rounds:
+            active = self._active[class_id]
+            if all(active):
+                out = round_fn(class_id)
+                continue
+            mask = self._masks[class_id]
+            static = self._static_tensors()[:-1]  # every state and Adam tensor
+            with torch.no_grad():
+                saved = [t.clone() for t in static]
+            self.generator.active = active
+            try:
+                new = round_fn(class_id)
+            finally:
+                self.generator.active = [True] * self._k
+            with torch.no_grad():
+                for t, s in zip(static, saved):
+                    t.copy_(torch.where(mask.view(-1, *[1] * (t.dim() - 1)), t, s))
+            out = new if out is None else {
+                k: torch.where(mask, v, out[k]) for k, v in new.items()}
+        return out
+
+
+def _banked_class(cls):
+    return type(f"Banked{cls.__name__}", (_Banked, cls), {})
+
+
+class SeedBank:
+    """Train K same-architecture replicas (one per seed) concurrently.
+
+    `cls` is one of the port's MLP trainers (`CVAEGAN`, `CGAN`, `CVAE`,
+    `GAN`, `VAE`, `VAEGAN`); the other parameters are the trainer's. After
+    `fit`, `self.trainers[k]` is a fully trained, independently usable
+    trainer for `seeds[k]`."""
+
+    def __init__(self, cls, seeds: Sequence[int],
+                 settings: Optional[config_lib.Settings] = None,
+                 balanced_mode: bool = False, ema_filter: bool = False,
+                 device="cuda", mesh=None):
+        if len(seeds) == 0:
+            raise ValueError("SeedBank needs at least one seed")
+        if mesh is not None:
+            raise NotImplementedError(
+                "SeedBank(mesh=...): sharding the replica axis over devices is "
+                "not ported yet (ROADMAP A21)")
+        self.seeds = list(seeds)
+        self.settings = settings or config_lib.settings
+        try:
+            self.trainers = [cls(seed=s, settings=self.settings, device=device,
+                                 balanced_mode=balanced_mode, ema_filter=ema_filter)
+                             for s in self.seeds]
+        except (TypeError, ValueError):
+            if balanced_mode or ema_filter:
+                raise
+            self.trainers = [cls(seed=s, settings=self.settings, device=device)
+                             for s in self.seeds]
+        #: wall-clock seconds of the last `fit` (stacking, capture and every
+        #: epoch, host sync included)
+        self.fit_seconds: float = 0.0
+        #: aggregate optimizer steps/s across all replicas in the last
+        #: `fit` (each replica counted with its own class rounds); 0 until
+        #: fit runs
+        self.steps_per_sec: float = 0.0
+        #: the banked trainer, kept across fits so that a later fit can
+        #: replay the same captured epoch
+        self._bank = None
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, datasets, eager: bool = False) -> List[GenerativeTrainer]:
+        """Train all replicas for `settings.gan.epochs` epochs; `datasets`
+        is one dataset (shared by every replica) or a sequence of exactly
+        `len(seeds)` datasets. Returns `self.trainers`.
+
+        Calling `fit` again continues training from the trained replica
+        states, as a trainer's `fit` does. On CUDA each epoch is a replay
+        of one captured CUDA graph; `eager=True` runs the plain version."""
+        t0 = time.time()
+        if not isinstance(datasets, (list, tuple)):
+            datasets = [datasets] * len(self.trainers)
+        if len(datasets) != len(self.trainers):
+            raise ValueError(f"{len(self.trainers)} seeds but {len(datasets)} datasets")
+        for t, ds in zip(self.trainers, datasets):
+            t._prepare(ds)
+        shapes = {tuple(t._data["samples"].shape) for t in self.trainers}
+        if len(shapes) != 1:
+            raise ValueError(f"replica train sets must share one shape, got {shapes}")
+        if len({t.label_num for t in self.trainers}) != 1:
+            raise ValueError("replica datasets must share label_num")
+
+        bank = self._load()
+        epochs = bank.gan_cfg.epochs
+        bank._fit_prepared(epochs, eager=eager)
+        self._store()
+        for key, rows in bank.loss_history.items():
+            for k, t in enumerate(self.trainers):
+                t.loss_history[key].extend(row[k] for row in rows)
+            rows.clear()
+        if bank.device.type == "cuda":
+            torch.cuda.synchronize(bank.device)
+        self.fit_seconds = time.time() - t0
+        steps = epochs * sum(t._steps_per_epoch() for t in self.trainers)
+        self.steps_per_sec = steps / max(self.fit_seconds, 1e-9)
+        return self.trainers
+
+    # -------------------------------------------------------- stack/unstack
+    def _load(self):
+        """The banked trainer, holding the replicas' current states,
+        optimizer states and data: built anew when a replica's networks or
+        data changed identity or shape, else refilled in place, so that
+        its captured epoch stays valid."""
+        key = [(id(t.state), tuple(t._data["samples"].shape),
+                tuple(t._data["index"].table.shape)) for t in self.trainers]
+        if self._bank is None or self._bank[0] != key:
+            self._bank = (key, self._build_bank())
+        bank = self._bank[1]
+        for name, net in bank.state.items():
+            banked.load(net, [t.state[name] for t in self.trainers])
+        with torch.no_grad():
+            for name, opt in bank.optimizers.items():
+                replicas = [t.optimizers[name].tensors() for t in self.trainers]
+                for dst, srcs in zip(opt.tensors(), zip(*replicas)):
+                    dst.copy_(torch.stack(srcs))
+        data = self._bank_data()
+        if bank._data is not None and np.array_equal(bank._data["host_counts"],
+                                                     data["host_counts"]):
+            with torch.no_grad():
+                for k, v in data.items():
+                    if isinstance(v, torch.Tensor):
+                        bank._data[k].copy_(v)
+        else:
+            self._set_data(bank, data)
+        return bank
+
+    def _store(self) -> None:
+        """Hand each trainer its replica's state and optimizer state."""
+        bank = self._bank[1]
+        for name, net in bank.state.items():
+            banked.store(net, [t.state[name] for t in self.trainers])
+        with torch.no_grad():
+            for name, opt in bank.optimizers.items():
+                for k, t in enumerate(self.trainers):
+                    for dst, src in zip(t.optimizers[name].tensors(), opt.tensors()):
+                        dst.copy_(src[k])
+        for t in self.trainers:
+            t._clear_gen_caches()
+
+    def _build_bank(self):
+        """A banked trainer of the replicas' class, with banked networks
+        and optimizers of their shapes and the replicas' generators."""
+        trainers = self.trainers
+        template = trainers[0]
+        bank = object.__new__(_banked_class(type(template)))
+        bank.__dict__.update(vars(template))
+        k, device = len(trainers), template.device
+        bank.verbose = False
+        bank._k = k
+        bank.state = nn.ModuleDict({
+            name: banked.stack([t.state[name] for t in trainers])
+            for name in template.state.keys()})
+        bank.optimizers = {
+            name: Adam(list(bank.state[name].parameters()), opt.lr, opt.b1, opt.b2,
+                       opt.eps, replicas=k)
+            for name, opt in template.optimizers.items()}
+        bank.generator = banked.ReplicaGenerators([t.generator for t in trainers], device)
+        bank.loss_history = {key: [] for key in template.loss_keys}
+        bank._qualified_caps = set()
+        bank._epoch_t = torch.zeros((), dtype=torch.float32, device=device)
+        bank._losses_out = torch.zeros((len(template.loss_keys), k), device=device)
+        bank._replica_ids = torch.arange(k, device=device)[:, None]
+        bank._data = None
+        bank._graph = None
+        return bank
+
+    def _bank_data(self) -> Dict:
+        """The replicas' data stacked: samples `[K, N, F]`, labels `[K, N]`,
+        index tables padded to the widest `[K, C, W]`, class sizes `[K, C]`
+        (and on the host), and what `sampler.present_labels` draws from for
+        each replica: its present classes in order, padded with 0, `[K, C]`,
+        and their number (all C when every class or none is present)."""
+        ts = self.trainers
+        width = max(int(t._data["index"].table.shape[1]) for t in ts)
+        label_num = ts[0].label_num
+        orders = []
+        for t in ts:
+            present = t._data["index"].present()
+            if len(present) in (0, label_num):
+                present = np.arange(label_num)
+            orders.append(present)
+        device = ts[0].device
+        return {
+            "samples": torch.stack([t._data["samples"] for t in ts]),
+            "labels": torch.stack([t._data["labels"] for t in ts]),
+            "table": torch.stack([F.pad(t._data["index"].table,
+                                        (0, width - t._data["index"].table.shape[1]))
+                                  for t in ts]),
+            "counts": torch.stack([t._data["index"].counts for t in ts]),
+            "host_counts": np.stack([t._data["index"].host_counts for t in ts]),
+            "order": torch.as_tensor(
+                np.stack([np.pad(o, (0, label_num - len(o))) for o in orders]),
+                dtype=torch.int64, device=device),
+            "label_highs": [len(o) for o in orders],
+        }
+
+    def _set_data(self, bank, data: Dict) -> None:
+        """Give the banked trainer new data, and the class rounds, the
+        replicas active in each and their masks that the data implies."""
+        bank._data = data
+        rounds = [t._class_rounds() for t in self.trainers]
+        if all(r == [None] for r in rounds):
+            union: List[Optional[int]] = [None]
+        else:
+            union = sorted(set().union(*rounds))
+        bank._union_rounds = union
+        bank._active = {c: [c in r for r in rounds] for c in union}
+        bank._masks = {c: torch.tensor(a, device=bank.device)
+                       for c, a in bank._active.items()}
+        bank._graph = None  # the old data's tensors may be freed and reused

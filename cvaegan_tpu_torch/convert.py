@@ -212,6 +212,36 @@ def cvaegan_dims(tree: Mapping) -> Tuple[int, int, int]:
     return feature_num, label_num, z_size
 
 
+def _decoder_dims(net: Mapping) -> Tuple[int, int]:
+    """(output features, input width) of a JAX MLP generator's tree."""
+    params = net["params"]
+    return (int(np.shape(params["Dense_0"]["kernel"])[1]),
+            int(np.shape(params["MLPTrunk_0"]["Dense_0"]["kernel"])[0]))
+
+
+def _classes(tree: Mapping) -> Optional[int]:
+    """The classes of a tree's companion classifier (its last layer's
+    width), or None if the tree has none."""
+    if "classifier" not in tree:
+        return None
+    return int(np.shape(tree["classifier"]["params"]["Dense_3"]["kernel"])[1])
+
+
+def cgan_dims(tree: Mapping) -> Tuple[int, int, int]:
+    """(feature_num, label_num, z_size) of a JAX CGAN state tree."""
+    feature_num, width = _decoder_dims(tree["generator"])
+    label_num = _classes(tree)
+    return feature_num, label_num, width - label_num
+
+
+def unconditional_dims(tree: Mapping, decoder: str) -> Tuple[int, Optional[int], int]:
+    """(feature_num, label_num, z_size) of a JAX GAN, VAE (`decoder` is
+    "decoder") or VAE-GAN state tree; label_num is None for the VAE-GAN,
+    none of whose networks depends on it."""
+    feature_num, z_size = _decoder_dims(tree[decoder])
+    return feature_num, _classes(tree), z_size
+
+
 def rain_gan_dims(tree: Mapping) -> Tuple[int, int, int]:
     """(feature_num, label_num, z_size) of a JAX RAIN-GAN state tree."""
     gen = tree["generator"]["params"]
@@ -223,8 +253,9 @@ def rain_gan_dims(tree: Mapping) -> Tuple[int, int, int]:
 
 def state_from_jax(tree: Mapping, state: nn.ModuleDict,
                    optimizers: Optional[Mapping] = None) -> nn.ModuleDict:
-    """Fill a trainer's state (`encoder`, `generator`, `discriminator`,
-    `classifier`, and `classifier_ema` under the EMA filter) from `tree`,
+    """Fill a trainer's state (its networks by name: `encoder`,
+    `generator` or the VAE's `decoder`, `discriminator`, `classifier`, and
+    `classifier_ema` under the EMA filter) from `tree`,
     which holds one Flax variable tree per network, each with `params`
     and its mutable collections, and optionally `opt_state`, which goes
     into `optimizers[name]`. Every leaf is accounted for."""

@@ -3,6 +3,12 @@
 Each is shape-polymorphic over the batch axis and promotes its inputs to
 float32, as the JAX package does. None of them reads a tensor's value on
 the host, so every one can run inside a captured CUDA graph.
+
+The training losses (`mse`, `kl_standard_normal`, `cross_entropy`, the
+Wasserstein losses) reduce a `[batch, ...]` input to a scalar and keep
+any axis in front of it: on the `[replicas, batch, ...]` tensors of a
+seed bank (`algorithms/seed_bank.py`) they give one loss per replica,
+each the mean over its own batch.
 """
 
 from __future__ import annotations
@@ -31,25 +37,26 @@ def mse(x_hat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Mean-squared-error reconstruction loss (reference
     `src/cvae_gan.py:190`, `F.mse_loss` with mean reduction)."""
     x_hat, x = _f32(x_hat, x)
-    return torch.mean(torch.square(x_hat - x))
+    return torch.mean(torch.square(x_hat - x), dim=(-2, -1))
 
 
 def kl_standard_normal(mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
     """KL(q(z|x) || N(0, I)) summed over latent dims, averaged over the
     batch (reference `src/cvae_gan.py:191`)."""
     mu, log_var = _f32(mu, log_var)
-    kl = -0.5 * torch.sum(1.0 + log_var - torch.square(mu) - torch.exp(log_var))
-    return kl / mu.shape[0]
+    kl = -0.5 * torch.sum(1.0 + log_var - torch.square(mu) - torch.exp(log_var),
+                          dim=(-2, -1))
+    return kl / mu.shape[-2]
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     log_probs = F.log_softmax(_f32(logits), dim=-1)
-    return -torch.take_along_dim(log_probs, labels.long()[:, None], dim=-1)[:, 0]
+    return -torch.take_along_dim(log_probs, labels.long()[..., None], dim=-1)[..., 0]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross entropy with integer labels."""
-    return torch.mean(_nll(logits, labels))
+    return torch.mean(_nll(logits, labels), dim=-1)
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -64,12 +71,12 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def wasserstein_d_loss(d_real: torch.Tensor, d_fake: torch.Tensor) -> torch.Tensor:
     """Critic loss `-E[D(x)] + E[D(G(z))]` (reference `src/cvae_gan.py:117-127`)."""
     d_real, d_fake = _f32(d_real, d_fake)
-    return -torch.mean(d_real) + torch.mean(d_fake)
+    return -torch.mean(d_real, dim=(-2, -1)) + torch.mean(d_fake, dim=(-2, -1))
 
 
 def wasserstein_g_loss(d_fake: torch.Tensor) -> torch.Tensor:
     """Generator adversarial term `-E[D(G(z))]` (reference `src/cvae_gan.py:195-196`)."""
-    return -torch.mean(_f32(d_fake))
+    return -torch.mean(_f32(d_fake), dim=(-2, -1))
 
 
 def hinge_d_loss(d_real: torch.Tensor, d_fake: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,7 @@ training steps stays valid across replays.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -75,15 +75,23 @@ class Adam:
     every update is an in-place `torch._foreach_*` op, so a step reads no
     value on the host and can be captured. GAN betas are 0.5/0.999
     (reference `src/cvae_gan.py:75-97`); the downstream classifier uses
-    optax's defaults 0.9/0.999."""
+    optax's defaults 0.9/0.999.
+
+    With `replicas=K` every parameter carries a leading axis of K
+    independent replicas (a seed bank's stacked networks) and `t` is one
+    count per replica, shape `[K]`: the update is elementwise, so it is K
+    separate Adams, and a replica whose state is put back after a masked
+    step keeps its own count."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 replicas: Optional[int] = None):
         self.params = list(params)
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
-        self.count = torch.zeros((), dtype=torch.int32, device=self.params[0].device)
+        self.count = torch.zeros(() if replicas is None else (replicas,),
+                                 dtype=torch.int32, device=self.params[0].device)
 
     def tensors(self):
         """Every tensor of the optimizer's state."""
@@ -100,8 +108,12 @@ class Adam:
             torch._foreach_mul(grads, grads), 1.0 - b2))
         self.count.add_(1)
         t = self.count.to(torch.float32)
-        m_hat = torch._foreach_div(self.m, 1.0 - torch.pow(b1, t))
-        denom = torch._foreach_sqrt(torch._foreach_div(self.v, 1.0 - torch.pow(b2, t)))
+        c1, c2 = 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+        if self.count.dim():  # one count per replica, on each leading axis
+            c1 = [c1.view(-1, *[1] * (p.dim() - 1)) for p in self.params]
+            c2 = [c2.view(-1, *[1] * (p.dim() - 1)) for p in self.params]
+        m_hat = torch._foreach_div(self.m, c1)
+        denom = torch._foreach_sqrt(torch._foreach_div(self.v, c2))
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(m_hat, denom)
         torch._foreach_mul_(update, -self.lr)
@@ -114,12 +126,19 @@ def adam(module: nn.Module, lr: float, b1: float = 0.5, b2: float = 0.999) -> Ad
     return Adam(list(module.parameters()), lr, b1, b2)
 
 
+def _total(loss: torch.Tensor) -> torch.Tensor:
+    """The scalar to differentiate: the loss itself, or the sum of a seed
+    bank's per-replica losses (each replica's parameters get the gradient
+    of its own loss alone)."""
+    return loss if loss.dim() == 0 else loss.sum()
+
+
 def grad_update(opt: Adam, loss_fn: Callable[[], tuple]):
     """One optimizer step on one network: `loss_fn() -> (loss, aux)`;
     gradients are taken over `opt.params` only (no `.grad` fields are
     written). Returns (loss, aux)."""
     loss, aux = loss_fn()
-    opt.step(torch.autograd.grad(loss, opt.params))
+    opt.step(torch.autograd.grad(_total(loss), opt.params))
     return loss, aux
 
 
@@ -128,7 +147,7 @@ def grad_update_pair(opt_a: Adam, opt_b: Adam, loss_fn: Callable[[], tuple]):
     generator update, reference `src/cvae_gan.py:159-216`): one backward
     over both parameter lists, two optimizers."""
     loss, aux = loss_fn()
-    grads = torch.autograd.grad(loss, [*opt_a.params, *opt_b.params])
+    grads = torch.autograd.grad(_total(loss), [*opt_a.params, *opt_b.params])
     opt_a.step(grads[:len(opt_a.params)])
     opt_b.step(grads[len(opt_a.params):])
     return loss, aux

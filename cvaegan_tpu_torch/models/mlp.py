@@ -9,6 +9,11 @@ Modules take integer labels and one-hot them internally; unconditional
 variants pass `labels=None`. Unlike Flax, a torch module needs its input
 width when it is built, so each constructor takes it first. Modules that
 drop out take the `torch.Generator` to draw their masks from.
+
+The forwards are written for inputs `[..., batch, features]`: a seed
+bank (`models/banked.py`) swaps each layer for one whose parameters carry
+a leading replica axis and runs these same forwards on `[replicas,
+batch, features]`.
 """
 
 from __future__ import annotations
@@ -136,7 +141,7 @@ class Discriminator(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.num_classes > 0 and labels is None:
-            cond = torch.zeros(x.shape[0], self.num_classes, dtype=x.dtype,
+            cond = torch.zeros(*x.shape[:-1], self.num_classes, dtype=x.dtype,
                                device=x.device)
             x = torch.cat([x, cond], dim=-1)
         else:

@@ -9,14 +9,17 @@ one template across the reference's train scripts):
   on the augmented data; 8) multiclass `test` + `binary_test` + ROC jpgs;
   9) wall-clock report; 10) per-class generated-sample mean/std stats.
 
-Run the CVAE-GAN pipeline with
+Run a trainer's pipeline with
 
-    python -m cvaegan_tpu_torch.pipelines.balance --dataset blobs --epochs 500
+    python -m cvaegan_tpu_torch.pipelines.balance --model cgan --dataset blobs --epochs 500
 
-(`--device cpu` on a machine without a card). The flags are the JAX
-CLI's (`scripts/train_cvae_gan.py`) plus `--device`; `--streamed` (the
-out-of-core pipeline) is ROADMAP item A18 and raises. Plots need
-matplotlib and sklearn, the `blobs` and `imbalanced` fixtures sklearn.
+(`--device cpu` on a machine without a card). `--model` picks one of
+`TRAINERS`, as the JAX package's `scripts/train_<model>.py` do (default
+`cvae_gan`); each runs the generation mode the JAX study gives it
+(`experiments/ours_multiseed.py:35-47`). The flags are the JAX CLI's
+plus `--model` and `--device`; `--streamed` (the out-of-core pipeline)
+is ROADMAP item A18 and raises. Plots need matplotlib and sklearn, the
+`blobs` and `imbalanced` fixtures sklearn.
 """
 
 from __future__ import annotations
@@ -31,6 +34,17 @@ import numpy as np
 from cvaegan_tpu_torch.core import config as config_lib
 from cvaegan_tpu_torch.data.tabular import TabularDataset
 from cvaegan_tpu_torch.eval.classifier import Classifier
+
+#: model name -> (class in `cvaegan_tpu_torch`, display name, generation
+#: mode), as `scripts/train_<model>.py` run them
+TRAINERS = {
+    "cvae_gan": ("CVAEGAN", "CVAE_GAN", "qualified"),
+    "cgan": ("CGAN", "CGAN", "qualified"),
+    "cvae": ("CVAE", "CVAE", "qualified"),
+    "gan": ("GAN", "GAN", "qualified"),
+    "vae": ("VAE", "VAE", "qualified"),
+    "vae_gan": ("VAEGAN", "VAE_GAN", "unconditional"),
+}
 
 
 def load_dataset(name: str, seed: int = 0) -> TabularDataset:
@@ -86,8 +100,13 @@ def run_balance_pipeline(
           f"counts: {ds.class_counts().tolist()}")
 
     if model is None:
-        model = algorithm_cls(seed=seed, settings=settings, device=device,
-                              balanced_mode=balanced_mode, ema_filter=ema_filter)
+        try:
+            model = algorithm_cls(seed=seed, settings=settings, device=device,
+                                  balanced_mode=balanced_mode, ema_filter=ema_filter)
+        except (TypeError, ValueError):
+            if balanced_mode or ema_filter:
+                raise
+            model = algorithm_cls(seed=seed, settings=settings, device=device)
         print(f"training {display_name} ...")
         model.fit(ds)
     if plot:
@@ -184,6 +203,8 @@ def make_cli(description: str):
     import argparse
 
     p = argparse.ArgumentParser(description=description)
+    p.add_argument("--model", default="cvae_gan", choices=sorted(TRAINERS),
+                   help="the trainer whose pipeline runs (default cvae_gan)")
     p.add_argument("--dataset", default="blobs",
                    help="blobs | imbalanced | CAN_HCRL_OTIDS | path to a "
                         "csv dir with x/y_{train,test}.csv")
@@ -258,12 +279,14 @@ def run_from_cli(algorithm_cls, display_name: str, args,
 
 
 def main(argv=None):
-    """The CVAE-GAN pipeline, as `scripts/train_cvae_gan.py` runs it."""
-    from cvaegan_tpu_torch import CVAEGAN
+    """The pipeline of `--model`, as `scripts/train_<model>.py` runs it."""
+    import cvaegan_tpu_torch
 
-    args = make_cli("Train CVAE_GAN and rebalance minority classes "
+    args = make_cli("Train a generative model and rebalance minority classes "
                     "(PyTorch port)").parse_args(argv)
-    return run_from_cli(CVAEGAN, "CVAE_GAN", args, generation_mode="qualified")
+    cls_name, display_name, mode = TRAINERS[args.model]
+    return run_from_cli(getattr(cvaegan_tpu_torch, cls_name), display_name, args,
+                        generation_mode=mode)
 
 
 if __name__ == "__main__":

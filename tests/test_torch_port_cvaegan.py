@@ -160,16 +160,39 @@ def _count_batches(port, monkeypatch):
 @pytest.mark.parametrize("num,cand", [(100, 256), (300, 512), (600, 1024)])
 def test_qualified_gives_up_after_20_empty_batches(twins, monkeypatch, num, cand):
     _, port, _ = twins
+    port._clear_gen_caches()
     sizes = _count_batches(port, monkeypatch)
     out = port.generate_qualified_samples(2, num, confidence_threshold=1.0)
     assert out.shape == (0, 30)
     assert sizes == [cand] * 20
 
 
+def test_qualified_reuses_the_smallest_capacity_that_covers(twins, monkeypatch):
+    """As the JAX package's `test_qualified_generation_single_compile`:
+    after a request of 300, requests of 50 and 256 draw the 512-row
+    candidate batches of the first; ascending requests still grow the
+    capacity; a fit forgets it."""
+    _, port, _ = twins
+    port._clear_gen_caches()
+    sizes = _count_batches(port, monkeypatch)
+    for num in (300, 50, 256):
+        port.generate_qualified_samples(2, num, confidence_threshold=1.0)
+    assert sizes == [512] * 60
+    sizes.clear()
+    port.generate_qualified_samples(2, 600, confidence_threshold=1.0)
+    port.generate_qualified_samples(2, 100, confidence_threshold=1.0)
+    assert sizes == [1024] * 20 + [512] * 20
+    port._fit_prepared(0)
+    sizes.clear()
+    port.generate_qualified_samples(2, 100, confidence_threshold=1.0)
+    assert sizes == [256] * 20
+
+
 def test_qualified_patience_is_never_refunded(twins, monkeypatch):
     """Batches alternate between no valid row and one valid row: the
     budget of 20 runs out at the 20th empty batch, after 19 kept rows."""
     _, port, _ = twins
+    port._clear_gen_caches()
     sizes = _count_batches(port, monkeypatch)
     target = 1
 

@@ -15,7 +15,6 @@ import torch
 import cvaegan_tpu_torch
 from cvaegan_tpu.core import config as jconfig
 from cvaegan_tpu.data import tabular as jtabular
-from cvaegan_tpu_torch import CVAEGAN
 from cvaegan_tpu_torch.core import config as tconfig
 from cvaegan_tpu_torch.data import tabular as ttabular
 from cvaegan_tpu_torch.kernels import fused_mlp
@@ -30,6 +29,7 @@ def _forbidden(name: str) -> bool:
 
 def test_import_loads_no_jax():
     code = ("import sys, cvaegan_tpu_torch, cvaegan_tpu_torch.convert\n"
+            "import cvaegan_tpu_torch.algorithms.seed_bank, cvaegan_tpu_torch.models.banked\n"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=PACKAGE.parent, timeout=120)
@@ -93,13 +93,20 @@ def test_load_csv_matches_jax(tmp_path):
     np.testing.assert_array_equal(ttabular.load_csv(path), jtabular.load_csv(path))
 
 
-def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+@pytest.mark.parametrize("name", ["CVAEGAN", "CGAN", "CVAE", "GAN", "VAE", "VAEGAN"])
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, name):
+    from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
+
+    cls = getattr(cvaegan_tpu_torch, name)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        CVAEGAN()
+        cls()
     with pytest.raises(RuntimeError):
-        CVAEGAN(device="cuda")
-    assert CVAEGAN(device="cpu").device == torch.device("cpu")
+        cls(device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SeedBank(cls, seeds=[0, 1])
+    assert cls(device="cpu").device == torch.device("cpu")
+    assert SeedBank(cls, seeds=[0], device="cpu").trainers[0].device == torch.device("cpu")
 
 
 def test_kernel_wrapper_rejects_other_devices():

@@ -86,6 +86,7 @@ def test_cli_parses_the_jax_flags(argv):
     want = vars(jbalance.make_cli("jax").parse_args(argv))
     got = vars(tbalance.make_cli("port").parse_args(argv))
     assert got.pop("device") == "cuda"
+    assert got.pop("model") == "cvae_gan"
     assert got == want
 
 
