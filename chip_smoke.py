@@ -8,7 +8,8 @@ weights made from a seed, on `cuda:0`: the flagship CVAE-GAN (30
 features, 5 classes, z 128, generator 133->256->128->64->30), the
 RAIN-GAN (the same widths; four pre-LN residual-attention networks over
 singleton sequences), the long-sequence attention stack that reaches the
-block-attention kernels, the other MLP trainers and `SeedBank`:
+block-attention kernels, the other trainers (SNGAN and CTGAN at widths
+from `hidden_sizes`) and `SeedBank`:
 
   1. environment: torch/CUDA versions, card name and power limit; TF32 off;
   2. build: compiles every kernel source from `cvaegan_tpu_torch/csrc`, one
@@ -52,14 +53,21 @@ block-attention kernels, the other MLP trainers and `SeedBank`:
      (`torch.profiler` over a replayed and an eager epoch). The kernels'
      launch counts over these phases must read 0: no kernel lies on the
      training path;
-  8. family: the CGAN, CVAE, GAN, VAE and VAE-GAN on the same stand-in in
-     strict mode: for each, a one-epoch captured fit against the eager one
-     (rtol 1e-5, atol 1e-6), a 100-epoch captured fit gated on finite
-     histories and, where there is a companion classifier, a class loss
-     near ln 5 before training and at epoch 0, the replayed epoch's
-     device time and steps/s, then every serving entry point for all 5
-     classes at 8192 rows (B1's launches counted around them: the fast
-     path of the CGAN and CVAE, held to the generator run in float64);
+  8. family: the CGAN, CVAE, GAN, VAE, VAE-GAN, RAIN-GAN, SNGAN and CTGAN
+     on the same stand-in in strict mode: for each, a one-epoch captured
+     fit against the eager one (rtol 1e-5, atol 1e-6; CTGAN's epoch holds
+     its gradient penalty's double backward), a 100-epoch captured fit
+     gated on exactly 100 replays, finite histories and, where there is a
+     companion classifier, a class loss near ln 5 before training and at
+     epoch 0 (RAIN-GAN: also its attention history, 2 points of 1.0 per
+     network), the replayed epoch's device time, steps/s and device ops
+     (`torch.profiler`), then every serving entry point for all 5 classes
+     at 8192 rows (B1's launches counted around them: the fast path of the
+     CGAN and CVAE, held to the generator run in float64; the other
+     conditional trainers' fast path raises and launches nothing), and for
+     RAIN-GAN, SNGAN and CTGAN a `run_balance_pipeline` at 100 GAN and 20
+     classifier epochs whose downstream classifier is warm-started from
+     the companion;
   9. seed_bank: `SeedBank` of strict CVAE-GANs on stand-ins of different
      class mixes (one lacking a class): the captured banked epoch against
      the eager one at K = 4, each replica against its serial fit after
@@ -138,10 +146,19 @@ STEPS_PER_EPOCH = {"strict": CLASSES * 13, "balanced": 13}
 # loss rises from epoch 0 (0.089-0.095 on every seed), so the port's strict
 # fit is held to these, within 5 standard deviations of their mean, where
 # the balanced fit is held to a falling recon loss.
-# The other MLP trainers (`family`): a short captured fit of each, in
-# strict mode, and its serving entry points.
-FAMILY = ("CGAN", "CVAE", "GAN", "VAE", "VAEGAN")
-FAMILY_EPOCHS = 100
+# The other trainers (`family`): a short captured fit of each, in strict
+# mode, and its serving entry points; the fast path (B1) serves the MLP
+# generators of FAST_PATH only. The trainers of FAMILY_PIPELINES also run
+# the balance pipeline, warm-starting the downstream classifier from their
+# companions (which differ from the CVAE-GAN's: attention, spectral,
+# BatchNorm).
+FAMILY = ("CGAN", "CVAE", "GAN", "VAE", "VAEGAN", "RAIN_GAN", "SNGAN", "CTGAN")
+FAST_PATH = ("CGAN", "CVAE")
+FAMILY_PIPELINES = ("RAIN_GAN", "SNGAN", "CTGAN")
+FAMILY_EPOCHS, FAMILY_CLF_EPOCHS = 100, 20
+# RAIN-GAN's attention history: one point per 50-epoch chunk, each the
+# mean of softmax probabilities over a single key.
+ATTENTION_TOL = 1e-6
 # SeedBank (`seed_bank`): strict CVAE-GANs on stand-ins of different class
 # mixes (1000 rows each; the last lacks class 2, so its rounds of class 2
 # are masked); each replica is held to its serial fit after one epoch at
@@ -603,32 +620,108 @@ def train_checks(torch, model, ds, mode):
 
 def class_loss_at_init(torch, model, ds):
     """The companion classifier's cross entropy on the train set before
-    any step (near ln 5 for 5 classes)."""
+    any step (near ln 5 for 5 classes), read in eval mode after one power
+    iteration of its spectral layers, on a copy. Until a train forward
+    iterates them, a spectral layer's u/v are the random unit vectors of
+    its init, and sigma = u^T W v is a few hundredths, so SNGAN's four
+    spectral layers give logits of ~1e4 at init, in the JAX package too.
+    Returns (that loss, the eval loss of the state as built)."""
     from cvaegan_tpu_torch.core import losses
 
     x = torch.as_tensor(ds.tr_samples, device=model.device)
     y = torch.as_tensor(ds.tr_labels, device=model.device)
-    return float(losses.cross_entropy(model._classifier_logits(model.state, x), y))
+    clf = copy.deepcopy(model.state["classifier"])
+    with torch.no_grad():
+        for layer in clf.modules():
+            if hasattr(layer, "u"):  # SpectralDense: one train forward iterates u/v
+                layer.train()(torch.zeros(1, layer.weight.shape[1], device=model.device))
+    state = {**dict(model.state.items()), "classifier": clf}
+    return (float(losses.cross_entropy(model._classifier_logits(state, x), y)),
+            float(losses.cross_entropy(model._classifier_logits(model.state, x), y)))
 
 
-def check_samples(s, rows, what):
+def check_samples(s, rows, what, low=0.0):
+    """`low` is -1 for a tanh output (CTGAN's), else 0."""
     check(s.shape == (rows, FEATURES) and s.dtype == np.float32, f"{what} gave {s.shape} {s.dtype}")
-    check(np.isfinite(s).all() and s.min() >= 0.0 and s.max() <= 1.0,
-          f"{what} gave values outside [0, 1]")
+    check(np.isfinite(s).all() and s.min() >= low and s.max() <= 1.0,
+          f"{what} gave values outside [{low}, 1]")
+
+
+def check_pipeline(result, ds):
+    """The artifact of `run_balance_pipeline` on `ds`: four arrays of the
+    JAX package's dtypes, the original train rows first, the generated
+    rows appended, the test split unchanged. Returns (generated rows,
+    augmented class counts)."""
+    import pickle
+
+    with open(result["pickle_path"], "rb") as f:
+        artifact = pickle.load(f)
+    check(isinstance(artifact, tuple) and len(artifact) == 4,
+          "the pipeline's pickle is not 4 arrays")
+    tr_x, tr_y, te_x, te_y = artifact
+    check((tr_x.dtype, tr_y.dtype, te_x.dtype, te_y.dtype)
+          == (np.float32, np.int32, np.float32, np.int32), "artifact dtypes")
+    base = ds.renormalized()
+    added = len(tr_y) - len(base.tr_labels)
+    check(np.array_equal(tr_y[:len(base.tr_labels)], base.tr_labels)
+          and np.array_equal(np.bincount(tr_y, minlength=CLASSES),
+                             base.class_counts() + np.bincount(tr_y[len(base.tr_labels):],
+                                                               minlength=CLASSES))
+          and len(tr_x) == len(tr_y) and np.array_equal(te_y, base.te_labels)
+          and np.array_equal(te_x, base.te_samples),
+          "augmented counts are not the original plus the generated rows")
+    return added, np.bincount(tr_y, minlength=CLASSES).tolist()
+
+
+def family_pipeline(torch, tp, tconfig, name, ds):
+    """`run_balance_pipeline` of trainer `name` at FAMILY_EPOCHS GAN and
+    FAMILY_CLF_EPOCHS classifier epochs, the downstream classifier
+    warm-started from the companion. Returns a report."""
+    import contextlib
+    import io
+    import tempfile
+
+    from cvaegan_tpu_torch.pipelines.balance import TRAINERS, run_balance_pipeline
+
+    (model_key,) = [k for k, v in TRAINERS.items() if v[0] == name]
+    cls_name, display, mode = TRAINERS[model_key]
+    with tempfile.TemporaryDirectory() as tmp:
+        settings = train_settings(tconfig, FAMILY_EPOCHS)
+        settings.classifier.epochs = FAMILY_CLF_EPOCHS
+        settings.paths = tconfig.Paths(root=tmp)
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = run_balance_pipeline(getattr(tp, cls_name), display, ds, out_dir=tmp,
+                                          settings=settings, plot=False,
+                                          generation_mode=mode, device="cuda")
+        added, counts = check_pipeline(result, ds)
+    clf = result["classifier"].module
+    check(type(clf) is type(result["model"].state["classifier"]),
+          f"{name}: the downstream classifier is not the companion's kind")
+    return {"model": model_key, "gan_epochs": FAMILY_EPOCHS, "clf_epochs": FAMILY_CLF_EPOCHS,
+            "warm_start": type(clf).__name__, "generated_rows": added,
+            "augmented_counts": counts, "multiclass_metrics": result["multiclass_metrics"],
+            "binary_metrics": result["binary_metrics"],
+            "classifier_fit_seconds": result["classifier"].fit_seconds,
+            "pipeline_seconds": result["seconds"]}
 
 
 def serve_family(torch, model, ds, fused_mlp):
     """Every serving entry point of a fitted trainer of the family, for
-    every class at SERVE_ROWS rows; for the conditional ones the fused
+    every class at SERVE_ROWS rows; for those of FAST_PATH the fused
     kernel's output of class 0 is held to the generator module run in
-    float64 on the same z. Returns a report."""
+    float64 on the same z, the others' fast path must raise. Returns a
+    report."""
     from cvaegan_tpu_torch.core.state import apply_eval
 
     report = {}
+    low = -1.0 if model.name == "ctgan" else 0.0
+    fast_path = type(model).__name__ in FAST_PATH
     if model.conditional_sampling:
         for c in range(CLASSES):
             check_samples(model.generate_samples(c, SERVE_ROWS), SERVE_ROWS,
-                          f"{model.name}.generate_samples")
+                          f"{model.name}.generate_samples", low)
+            if not fast_path:
+                continue
             rng_state = model.generator.get_state()
             fast = model.generate_samples_fast(c, SERVE_ROWS)
             check_samples(fast, SERVE_ROWS, f"{model.name}.generate_samples_fast")
@@ -645,12 +738,14 @@ def serve_family(torch, model, ds, fused_mlp):
     else:
         check_samples(model.generate_samples(SERVE_ROWS), SERVE_ROWS,
                       f"{model.name}.generate_samples")
+    if not fast_path:
         try:
             model.generate_samples_fast(0, SERVE_ROWS)
             raised = False
         except NotImplementedError:
             raised = True
         check(raised, f"{model.name}.generate_samples_fast did not raise")
+        report["fast_path_raises"] = raised
     if "classifier" in model.state:
         qualified = {(c, thr): model.generate_qualified_samples(
             c, QUALIFIED_ROWS, confidence_threshold=thr)
@@ -668,7 +763,7 @@ def serve_family(torch, model, ds, fused_mlp):
         x, y = ds.tr_samples[:RECON_ROWS], ds.tr_labels[:RECON_ROWS]
         recon = (model.reconstruct_samples(x, y) if model.conditional_sampling
                  else model.reconstruct_samples(x))
-        check_samples(recon, RECON_ROWS, f"{model.name}.reconstruct_samples")
+        check_samples(recon, RECON_ROWS, f"{model.name}.reconstruct_samples", low)
         report["recon_shape"] = list(recon.shape)
     return report
 
@@ -677,8 +772,9 @@ def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
     """The `family` phase: for each trainer of FAMILY, a one-epoch
     captured fit against the eager one, a FAMILY_EPOCHS captured fit with
     its gates, then its serving entry points with the kernels' launch
-    counts read around them. Returns (report, training launches (fused,
-    B2, B3), fast-path launches of B1)."""
+    counts read around them, and for those of FAMILY_PIPELINES the
+    balance pipeline. Returns (report, gates missed, training launches
+    (fused, B2, B3), fast-path launches of B1)."""
     report, missed = {}, []
     train_launches, fast_launches = [0, 0, 0], 0
     for name in FAMILY:
@@ -705,7 +801,8 @@ def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
 
         fresh = cls(seed=0, device="cuda")
         fresh._prepare(ds)
-        init_class = class_loss_at_init(torch, fresh, ds) if "classifier" in fresh.state else None
+        init_class, init_class_eval = (class_loss_at_init(torch, fresh, ds)
+                                       if "classifier" in fresh.state else (None, None))
         counter.reset()
         t0 = time.perf_counter()
         model = fitted(FAMILY_EPOCHS)
@@ -720,6 +817,14 @@ def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
         for v in class0:
             if abs(v - np.log(CLASSES)) > 0.3:
                 missed.append(f"{name}: epoch-0 class loss {v}, not within 0.3 of ln 5")
+        attention = getattr(model, "attention_history", None)
+        if attention is not None:
+            points = FAMILY_EPOCHS // model.epoch_chunk
+            for net, values in attention.items():
+                if not (len(values) == points
+                        and np.allclose(values, 1.0, rtol=0.0, atol=ATTENTION_TOL)):
+                    missed.append(f"{name}: {net} attention history {values}, not "
+                                  f"{points} points within {ATTENTION_TOL} of 1")
         graph = model._graph[1]
 
         def replay(model=model, graph=graph):
@@ -728,6 +833,7 @@ def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
 
         (device_ms,), rounds = cuda_ms(torch, [replay], iters=10, reps=4, warmup=2)
         (host_rate,) = samples_per_s(torch, [replay], 1, iters=10, reps=4)
+        prof = breakdown(torch, replay, 1e3 / host_rate, calls=2, top=4)
         torch.cuda.synchronize()
         for i, n in enumerate((fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES)):
             train_launches[i] += n
@@ -736,12 +842,19 @@ def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
         served = serve_family(torch, model, ds, fused_mlp)
         torch.cuda.synchronize()
         launches = fused_counts(fused_mlp)
-        want = CLASSES if model.conditional_sampling else 0
+        want = CLASSES if name in FAST_PATH else 0
         check(launches == {"tensor_core": want, "simt": 0, "total": want}
               and (ba.LAUNCHES, ba.ENTROPY_LAUNCHES) == (0, 0),
               f"{name}: launches on the serving path {launches}, "
               f"B2/B3 {(ba.LAUNCHES, ba.ENTROPY_LAUNCHES)}")
         fast_launches += launches["total"]
+        pipeline = None
+        if name in FAMILY_PIPELINES:
+            zero_counts(fused_mlp, ba)
+            pipeline = family_pipeline(torch, tp, tconfig, name, ds)
+            torch.cuda.synchronize()
+            for i, n in enumerate((fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES)):
+                train_launches[i] += n
         report[name] = {
             "graph_vs_eager_epoch1": {"max_abs_diff": err, "worst_err_over_tol": ratio,
                                       "bitwise": bitwise},
@@ -750,10 +863,13 @@ def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
             "replay_device_ms_per_epoch": device_ms, "replay_device_ms_rounds": rounds[0],
             "replay_epochs_per_s": host_rate,
             "replay_steps_per_s": host_rate * model._steps_per_epoch(),
-            "class_loss_at_init": init_class,
+            "replay_breakdown": prof,
+            "class_loss_at_init": init_class, "class_loss_at_init_eval_as_built": init_class_eval,
             "epoch0": {k: float(v[0]) for k, v in hist.items()},
             "last10_mean": {k: float(v[-10:].mean()) for k, v in hist.items()},
-            "fused_launches": launches, **served}
+            **({"attention_history": attention} if attention is not None else {}),
+            "fused_launches": launches, **served,
+            **({"pipeline": pipeline} if pipeline is not None else {})}
     return report, missed, train_launches, fast_launches
 
 
@@ -1184,7 +1300,6 @@ def main() -> int:
     # 7. training ---------------------------------------------------------
     import contextlib
     import io
-    import pickle
     import tempfile
 
     import cvaegan_tpu_torch as tp
@@ -1249,29 +1364,13 @@ def main() -> int:
         with contextlib.redirect_stdout(log):
             result = run_balance_pipeline(CVAEGAN, "CVAE_GAN", ds, out_dir=tmp,
                                           settings=settings, plot=False, device="cuda")
-        with open(result["pickle_path"], "rb") as f:
-            artifact = pickle.load(f)
-    check(isinstance(artifact, tuple) and len(artifact) == 4,
-          "the pipeline's pickle is not 4 arrays")
-    tr_x, tr_y, te_x, te_y = artifact
-    check((tr_x.dtype, tr_y.dtype, te_x.dtype, te_y.dtype)
-          == (np.float32, np.int32, np.float32, np.int32), "artifact dtypes")
-    base = ds.renormalized()
-    added = len(tr_y) - len(base.tr_labels)
-    check(np.array_equal(tr_y[:len(base.tr_labels)], base.tr_labels)
-          and np.array_equal(np.bincount(tr_y, minlength=CLASSES),
-                             base.class_counts() + np.bincount(tr_y[len(base.tr_labels):],
-                                                               minlength=CLASSES))
-          and len(tr_x) == len(tr_y) and np.array_equal(te_y, base.te_labels)
-          and np.array_equal(te_x, base.te_samples),
-          "augmented counts are not the original plus the generated rows")
+        added, augmented_counts = check_pipeline(result, ds)
     f1 = result["multiclass_metrics"]["F1"]
     clf_seconds = result["classifier"].fit_seconds
     torch.cuda.synchronize()
     training_launches = (fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES)
     emit({"phase": "pipeline", "gan_epochs": GAN_EPOCHS, "clf_epochs": CLF_EPOCHS,
-          "generated_rows": added,
-          "augmented_counts": np.bincount(tr_y, minlength=CLASSES).tolist(),
+          "generated_rows": added, "augmented_counts": augmented_counts,
           "multiclass_metrics": result["multiclass_metrics"],
           "binary_metrics": result["binary_metrics"],
           "classifier_fit_seconds": clf_seconds, "pipeline_seconds": result["seconds"],

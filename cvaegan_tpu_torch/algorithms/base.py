@@ -62,7 +62,7 @@ from cvaegan_tpu_torch.data.sampler import (
 from cvaegan_tpu_torch.data.tabular import TabularDataset
 from cvaegan_tpu_torch.kernels import fused_mlp as fused
 from cvaegan_tpu_torch.models import mlp
-from cvaegan_tpu_torch.models.layers import one_hot
+from cvaegan_tpu_torch.models.layers import forward_with, one_hot
 
 QUALIFIED_PATIENCE = 20
 PRINT_EVERY = 50
@@ -99,6 +99,9 @@ class GenerativeTrainer:
     conditional_sampling: bool = True
     #: the network that maps z (and labels) to samples
     decoder_name: str = "generator"
+    #: whether `models/banked.py` has banked forms of the trainer's
+    #: networks, so that `SeedBank` can train it
+    bankable: bool = True
 
     def __init__(self, seed: Optional[int] = None,
                  settings: Optional[config_lib.Settings] = None,
@@ -166,13 +169,26 @@ class GenerativeTrainer:
         its last step by `loss_keys`."""
         raise NotImplementedError(f"{self.name}: training is not ported yet")
 
-    def _epoch_body(self, epoch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One training epoch: every class round with each kind of step
-        run `settings.gan.<kind>_loop_num` times; the losses are the last
-        round's."""
+    def _loop_counts(self) -> Dict[str, int]:
+        """Steps of each kind of `loops` in one class round:
+        `settings.gan.<kind>_loop_num`."""
         cfg = self.gan_cfg
-        counts = {kind: getattr(cfg, f"{kind}_loop_num") for kind in self.loops}
+        return {kind: getattr(cfg, f"{kind}_loop_num") for kind in self.loops}
+
+    def _epoch_body(self, epoch: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One training epoch: every class round with `_loop_counts` steps
+        of each kind; the losses are the last round's."""
+        counts = self._loop_counts()
         return self._rounds(lambda class_id: self._round(class_id, epoch, counts))
+
+    def _on_chunk_end(self, epochs_done: int) -> None:
+        """Called by `fit` after each `epoch_chunk` epochs, once their
+        losses are on the host and `self.state` is current (a no-op
+        unless a subclass records something, as RAIN-GAN's attention
+        history does). On CUDA it runs between replays, outside the
+        graph, so it may only read: eval-mode forwards, which change no
+        BatchNorm statistic, spectral u/v or generator state the graph
+        reads."""
 
     def _warm_up(self) -> None:
         """One optimizer step of each kind the epoch runs, before capture."""
@@ -271,9 +287,7 @@ class GenerativeTrainer:
 
     def _steps_per_epoch(self) -> int:
         """Optimizer steps of one epoch."""
-        cfg = self.gan_cfg
-        per_round = sum(getattr(cfg, f"{kind}_loop_num") for kind in self.loops)
-        return len(self._class_rounds()) * per_round
+        return len(self._class_rounds()) * sum(self._loop_counts().values())
 
     def _generators(self) -> List[torch.Generator]:
         """Every generator an epoch draws from (a seed bank has one per
@@ -315,7 +329,7 @@ class GenerativeTrainer:
         clf = self.state["classifier"].train()
 
         def loss_fn():
-            logits = clf(x, self.generator)
+            logits = forward_with(clf, x, generator=self.generator)
             if z is None:
                 return losses.cross_entropy(logits, y), None
             real_logits, fake_logits = logits.chunk(2, dim=-2)
@@ -425,6 +439,8 @@ class GenerativeTrainer:
                                      for j, k in enumerate(self.loss_keys))
                     print(f"{self.name} epoch {e + i}/{epochs}, {head}")
             e += n
+            self._clear_gen_caches()
+            self._on_chunk_end(e)
         self._clear_gen_caches()
 
     def _epoch(self) -> None:

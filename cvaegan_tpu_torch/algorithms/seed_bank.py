@@ -67,6 +67,10 @@ class _Banked:
     def _generators(self) -> List[torch.Generator]:
         return self.generator.generators
 
+    def _on_chunk_end(self, epochs_done: int) -> None:
+        """Skipped in bank mode, as in the JAX package: per-replica host
+        work."""
+
     # ------------------------------------------------------------ draws
     def _prior(self, num: int) -> torch.Tensor:
         return self.generator.randn((num, self.gan_cfg.z_size))
@@ -150,9 +154,11 @@ class SeedBank:
     """Train K same-architecture replicas (one per seed) concurrently.
 
     `cls` is one of the port's MLP trainers (`CVAEGAN`, `CGAN`, `CVAE`,
-    `GAN`, `VAE`, `VAEGAN`); the other parameters are the trainer's. After
-    `fit`, `self.trainers[k]` is a fully trained, independently usable
-    trainer for `seeds[k]`."""
+    `GAN`, `VAE`, `VAEGAN`); the other parameters are the trainer's. The
+    JAX package banks all 11 trainers; the port has no banked forms of
+    RAIN-GAN's, SNGAN's or CTGAN's networks yet (ROADMAP A24) and refuses
+    them here. After `fit`, `self.trainers[k]` is a fully trained,
+    independently usable trainer for `seeds[k]`."""
 
     def __init__(self, cls, seeds: Sequence[int],
                  settings: Optional[config_lib.Settings] = None,
@@ -164,6 +170,10 @@ class SeedBank:
             raise NotImplementedError(
                 "SeedBank(mesh=...): sharding the replica axis over devices is "
                 "not ported yet (ROADMAP A21)")
+        if not cls.bankable:
+            raise NotImplementedError(
+                f"SeedBank({cls.__name__}): the port has no banked forms of its "
+                "networks yet (ROADMAP A24); fit each seed serially")
         self.seeds = list(seeds)
         self.settings = settings or config_lib.settings
         try:

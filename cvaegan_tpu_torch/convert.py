@@ -17,7 +17,14 @@ of the port's modules:
     holds `LayerNorm_0`, the attention, `LayerNorm_1`, and its
     feed-forward and shortcut layers as `Dense_{0,1,2}` (or
     `SpectralDense_{0,1,2}` in the discriminator), the shortcut only
-    where the width changes.
+    where the width changes;
+  * an SNGAN network holds its Linears as `SpectralDense_{i}` (`Dense_{i}`
+    in a generator without spectral norm) and the generator's
+    BatchNorms as `BatchNorm_{i}`;
+  * a CTGAN `ResidualBlock_{i}` holds its two Linears and its shortcut as
+    `Dense_{0,1,2}` (`SpectralDense_{0,1,2}` in the critic) and its
+    BatchNorms as `BatchNorm_{0,1}`; `ModeSpecificNormalization` holds
+    `gamma` and `beta`.
 
 A network's tree may also hold `opt_state`: its optax Adam state as
 `{"count", "mu", "nu"}`, with `mu` and `nu` shaped like `params`. It goes
@@ -35,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cvaegan_tpu_torch.models import attention, mlp
+from cvaegan_tpu_torch.models import attention, ctgan, mlp, sngan
 from cvaegan_tpu_torch.models.layers import (
     BatchNorm,
     Dense,
@@ -119,6 +126,27 @@ def _block(prefix: Path, block: attention.ResidualAttentionBlock) -> Leaves:
             **_named(prefix, dense)}
 
 
+def _batchnorms(prefix: Path, bns) -> Leaves:
+    leaves: Leaves = {}
+    for i, bn in enumerate(bns):
+        leaves.update(_batchnorm((*prefix, f"BatchNorm_{i}"), bn))
+    return leaves
+
+
+def _residual(prefix: Path, block: ctgan.ResidualBlock) -> Leaves:
+    dense = [block.dense1, block.dense2] + ([block.shortcut] if block.shortcut else [])
+    return {**_named(prefix, dense), **_batchnorms(prefix, (block.bn1, block.bn2))}
+
+
+def _ctgan(net: nn.Module, dense, bns) -> Leaves:
+    """A CTGAN generator or critic: its Linears outside the blocks (in
+    call order), its BatchNorms and its residual blocks."""
+    leaves = {**_named((), dense), **_batchnorms((), bns)}
+    for i, block in enumerate(net.blocks):
+        leaves.update(_residual((f"ResidualBlock_{i}",), block))
+    return leaves
+
+
 def _rain(net: nn.Module, dense) -> Leaves:
     """A RAIN network: its Dense/SpectralDense layers outside the blocks
     (in call order), its `LayerNorm_0` where it has one, and its blocks."""
@@ -162,6 +190,21 @@ def net_leaves(net: nn.Module) -> Leaves:
     if isinstance(net, (attention.RAINGenerator, attention.RAINDiscriminator,
                         attention.RAINClassifier)):
         return _rain(net, [net.proj, net.head])
+    if isinstance(net, sngan.SNGANGenerator):
+        return {**_named((), [*net.layers, net.head]), **_batchnorms((), net.bn)}
+    if isinstance(net, (sngan.SNGANDiscriminator, sngan.SNGANClassifier)):
+        return _named((), net.layers)
+    if isinstance(net, ctgan.ResidualBlock):
+        return _residual((), net)
+    if isinstance(net, ctgan.CTGANGenerator):
+        return _ctgan(net, [net.proj, net.head], [net.bn])
+    if isinstance(net, ctgan.CTGANDiscriminator):
+        return _ctgan(net, [net.proj, net.head], [])
+    if isinstance(net, ctgan.CTGANClassifier):
+        return {**_named((), net.layers), **_batchnorms((), net.bn)}
+    if isinstance(net, ctgan.ModeSpecificNormalization):
+        return {("params", "gamma"): (net.gamma, False),
+                ("params", "beta"): (net.beta, False)}
     raise TypeError(f"no Flax layout known for {type(net).__name__}")
 
 
@@ -248,6 +291,27 @@ def rain_gan_dims(tree: Mapping) -> Tuple[int, int, int]:
     feature_num = int(np.shape(gen["Dense_1"]["kernel"])[1])
     label_num = int(np.shape(tree["encoder"]["params"]["Dense_0"]["kernel"])[0]) - feature_num
     z_size = int(np.shape(gen["Dense_0"]["kernel"])[0]) - label_num
+    return feature_num, label_num, z_size
+
+
+def sngan_dims(tree: Mapping) -> Tuple[int, int, int]:
+    """(feature_num, label_num, z_size) of a JAX SNGAN state tree, with or
+    without spectral norm on the generator."""
+    gen = tree["generator"]["params"]
+    kind = "SpectralDense" if "SpectralDense_0" in gen else "Dense"
+    feature_num = int(np.shape(gen[f"{kind}_3"]["kernel"])[1])
+    label_num = int(np.shape(tree["classifier"]["params"]["SpectralDense_3"]["kernel"])[1])
+    z_size = int(np.shape(gen[f"{kind}_0"]["kernel"])[0]) - label_num
+    return feature_num, label_num, z_size
+
+
+def ctgan_dims(tree: Mapping) -> Tuple[int, int, int]:
+    """(feature_num, label_num, z_size) of a JAX CTGAN state tree (the
+    generator's input is concat(z, onehot(y), column_mask))."""
+    gen = tree["generator"]["params"]
+    feature_num = int(np.shape(gen["Dense_1"]["kernel"])[1])
+    label_num = _classes(tree)
+    z_size = int(np.shape(gen["Dense_0"]["kernel"])[0]) - label_num - feature_num
     return feature_num, label_num, z_size
 
 

@@ -30,6 +30,7 @@ from cvaegan_tpu_torch.core import losses
 from cvaegan_tpu_torch.core.state import Adam, apply_eval, init_net, resolve_device
 from cvaegan_tpu_torch.data.tabular import TabularDataset
 from cvaegan_tpu_torch.models import mlp
+from cvaegan_tpu_torch.models.layers import forward_with
 from cvaegan_tpu_torch.utils.logger import Logger
 
 
@@ -134,7 +135,11 @@ class Classifier:
     def warm_start_from(self, trainer) -> None:
         """Adopt a deep copy of a trainer's companion classifier, buffers
         included (reference warm start `clf.model = gan.classifier`,
-        `scripts/train_cvae_gan.py:144-145`)."""
+        `scripts/train_cvae_gan.py:144-145`). Any companion will do: its
+        forward gets the generator only if it drops out (`forward_with`),
+        a tuple output gives its logits first (RAIN-GAN's), and its
+        spectral u/v or BatchNorm statistics update in train mode, as the
+        JAX package commits a companion's mutables."""
         self.module = copy.deepcopy(trainer.state["classifier"]).to(self.device)
         self.label_num = trainer.label_num
 
@@ -173,7 +178,7 @@ class Classifier:
 
     def _step(self, opt: Adam, bx, by, bw) -> torch.Tensor:
         """One optimizer step on a batch with per-row weights."""
-        out = self.module(bx, self.generator)
+        out = forward_with(self.module, bx, generator=self.generator)
         logits = out[0] if isinstance(out, tuple) else out
         loss = losses.weighted_cross_entropy(logits, by, bw)
         opt.step(torch.autograd.grad(loss, opt.params))

@@ -20,10 +20,15 @@ Layouts and numerics follow the JAX package, not torch's built-ins:
   * Every module reads `self.training`; a train-mode forward under
     `torch.no_grad()` still updates the BatchNorm statistics and `u`/`v`
     in place (the JAX package returns them as new mutables instead).
+    Under `state_frozen(net)` a train-mode forward keeps batch statistics,
+    dropout and the current `u`/`v` but updates nothing: the counterpart
+    of a Flax apply whose new mutables are thrown away.
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -89,6 +94,8 @@ class SpectralDense(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        #: False under `state_frozen`: no power iteration in train mode
+        self.update_state = True
         self.register_buffer("u", torch.zeros(features))
         self.register_buffer("v", torch.zeros(in_features))
 
@@ -101,7 +108,7 @@ class SpectralDense(nn.Module):
         self.v.copy_(_l2_normalize(self.v.normal_(generator=generator)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and self.update_state:
             with torch.no_grad():
                 v = _l2_normalize(self.u @ self.weight)
                 self.u.copy_(_l2_normalize(self.weight @ v))
@@ -127,6 +134,8 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        #: False under `state_frozen`: batch statistics, no running update
+        self.update_state = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -139,6 +148,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             mean, var = _moments(x, 0)
+            if not self.update_state:
+                return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -161,6 +172,31 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, var = _moments(x, -1, keepdim=True)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+@contextlib.contextmanager
+def state_frozen(net: nn.Module):
+    """Inside the block, train-mode forwards of `net` leave its BatchNorm
+    running statistics and spectral `u`/`v` as they are (a second forward
+    that must see the first one's sigma, as CTGAN's gradient penalty
+    does)."""
+    layers = [m for m in net.modules() if hasattr(m, "update_state")]
+    for m in layers:
+        m.update_state = False
+    try:
+        yield net
+    finally:
+        for m in layers:
+            m.update_state = True
+
+
+def forward_with(module: nn.Module, *args, generator: Optional[torch.Generator] = None):
+    """`module(*args)`, passing `generator` where the module's forward takes
+    one (it draws dropout masks from it). Companion classifiers differ:
+    the MLP and CTGAN ones drop out, the RAIN and SNGAN ones do not."""
+    if "generator" in inspect.signature(module.forward).parameters:
+        return module(*args, generator=generator)
+    return module(*args)
 
 
 def _keep_mask(x: torch.Tensor, keep_prob: float,

@@ -44,6 +44,9 @@ TRAINERS = {
     "gan": ("GAN", "GAN", "qualified"),
     "vae": ("VAE", "VAE", "qualified"),
     "vae_gan": ("VAEGAN", "VAE_GAN", "unconditional"),
+    "rain_gan": ("RAIN_GAN", "RAIN_GAN", "qualified"),
+    "sngan": ("SNGAN", "SNGAN", "qualified"),
+    "ctgan": ("CTGAN", "CTGAN", "qualified"),
 }
 
 

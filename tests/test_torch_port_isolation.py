@@ -30,6 +30,8 @@ def _forbidden(name: str) -> bool:
 def test_import_loads_no_jax():
     code = ("import sys, cvaegan_tpu_torch, cvaegan_tpu_torch.convert\n"
             "import cvaegan_tpu_torch.algorithms.seed_bank, cvaegan_tpu_torch.models.banked\n"
+            "import cvaegan_tpu_torch.algorithms.sngan, cvaegan_tpu_torch.algorithms.ctgan\n"
+            "import cvaegan_tpu_torch.models.sngan, cvaegan_tpu_torch.models.ctgan\n"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=PACKAGE.parent, timeout=120)
@@ -37,8 +39,10 @@ def test_import_loads_no_jax():
     assert not loaded, loaded
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(PACKAGE)))
+@pytest.mark.parametrize("path", [*sorted(PACKAGE.rglob("*.py")),
+                                  PACKAGE.parent / "chip_smoke.py"],
+                         ids=lambda p: (p.name if p.parent == PACKAGE.parent
+                                        else str(p.relative_to(PACKAGE))))
 def test_sources_import_no_jax(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -107,6 +111,21 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, name):
         SeedBank(cls, seeds=[0, 1])
     assert cls(device="cpu").device == torch.device("cpu")
     assert SeedBank(cls, seeds=[0], device="cpu").trainers[0].device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["RAIN_GAN", "SNGAN", "CTGAN"])
+def test_new_trainers_need_cuda_unless_asked_for_cpu(monkeypatch, name):
+    from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
+
+    cls = getattr(cvaegan_tpu_torch, name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls()
+    with pytest.raises(RuntimeError):
+        cls(device="cuda")
+    assert cls(device="cpu").device == torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="A24"):
+        SeedBank(cls, seeds=[0], device="cpu")
 
 
 def test_kernel_wrapper_rejects_other_devices():
