@@ -8,8 +8,8 @@ weights made from a seed, on `cuda:0`: the flagship CVAE-GAN (30
 features, 5 classes, z 128, generator 133->256->128->64->30), the
 RAIN-GAN (the same widths; four pre-LN residual-attention networks over
 singleton sequences), the long-sequence attention stack that reaches the
-block-attention kernels, the other trainers (SNGAN and CTGAN at widths
-from `hidden_sizes`) and `SeedBank`:
+block-attention kernels, the other trainers (SNGAN, CTGAN, QG-SMOTE and
+TMG-GAN at widths from `hidden_sizes`) and `SeedBank`:
 
   1. environment: torch/CUDA versions, card name and power limit; TF32 off;
   2. build: compiles every kernel source from `cvaegan_tpu_torch/csrc`, one
@@ -53,21 +53,25 @@ from `hidden_sizes`) and `SeedBank`:
      (`torch.profiler` over a replayed and an eager epoch). The kernels'
      launch counts over these phases must read 0: no kernel lies on the
      training path;
-  8. family: the CGAN, CVAE, GAN, VAE, VAE-GAN, RAIN-GAN, SNGAN and CTGAN
-     on the same stand-in in strict mode: for each, a one-epoch captured
-     fit against the eager one (rtol 1e-5, atol 1e-6; CTGAN's epoch holds
-     its gradient penalty's double backward), a 100-epoch captured fit
-     gated on exactly 100 replays, finite histories and, where there is a
-     companion classifier, a class loss near ln 5 before training and at
-     epoch 0 (RAIN-GAN: also its attention history, 2 points of 1.0 per
-     network), the replayed epoch's device time, steps/s and device ops
-     (`torch.profiler`), then every serving entry point for all 5 classes
-     at 8192 rows (B1's launches counted around them: the fast path of the
-     CGAN and CVAE, held to the generator run in float64; the other
-     conditional trainers' fast path raises and launches nothing), and for
-     RAIN-GAN, SNGAN and CTGAN a `run_balance_pipeline` at 100 GAN and 20
-     classifier epochs whose downstream classifier is warm-started from
-     the companion;
+  8. family: the CGAN, CVAE, GAN, VAE, VAE-GAN, RAIN-GAN, SNGAN, CTGAN,
+     QG-SMOTE and TMG-GAN on the same stand-in in strict mode: for each, a
+     one-epoch captured fit against the eager one (rtol 1e-5, atol 1e-6;
+     CTGAN's epoch holds its gradient penalty's double backward), a
+     100-epoch captured fit gated on exactly 100 replays, its chunk-end
+     hook's runs (TMG-GAN's scatter every 10 epochs: 10), finite
+     histories and, where there is a companion classifier, a class loss
+     near ln 5 before training and at epoch 0 (RAIN-GAN: also its
+     attention history, 2 points of 1.0 per network), the replayed epoch's
+     device time, steps/s and device ops (`torch.profiler`), then every
+     serving entry point for all 5 classes at 8192 rows (B1's launches
+     counted around them: the fast path of the CGAN, CVAE and QG-SMOTE,
+     held to the generator run in float64; the other conditional
+     trainers' fast path raises and launches nothing; QG-SMOTE also from
+     the prior and its latent quantiles; TMG-GAN's qualified generation
+     exactly each class's need, in [-1, 1]), and for RAIN-GAN, SNGAN,
+     CTGAN, QG-SMOTE and TMG-GAN a `run_balance_pipeline` at 100 GAN and
+     20 classifier epochs whose downstream classifier is warm-started from
+     the companion, where there is one (TMG-GAN has none);
   9. seed_bank: `SeedBank` of strict CVAE-GANs on stand-ins of different
      class mixes (one lacking a class): the captured banked epoch against
      the eager one at K = 4, each replica against its serial fit after
@@ -90,6 +94,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import pathlib
 import re
 import subprocess
 import sys
@@ -152,9 +157,12 @@ STEPS_PER_EPOCH = {"strict": CLASSES * 13, "balanced": 13}
 # the balance pipeline, warm-starting the downstream classifier from their
 # companions (which differ from the CVAE-GAN's: attention, spectral,
 # BatchNorm).
-FAMILY = ("CGAN", "CVAE", "GAN", "VAE", "VAEGAN", "RAIN_GAN", "SNGAN", "CTGAN")
-FAST_PATH = ("CGAN", "CVAE")
-FAMILY_PIPELINES = ("RAIN_GAN", "SNGAN", "CTGAN")
+FAMILY = ("CGAN", "CVAE", "GAN", "VAE", "VAEGAN", "RAIN_GAN", "SNGAN", "CTGAN",
+          "QG_SMOTE", "TMGGAN")
+FAST_PATH = ("CGAN", "CVAE", "QG_SMOTE")
+FAMILY_PIPELINES = ("RAIN_GAN", "SNGAN", "CTGAN", "QG_SMOTE", "TMGGAN")
+# Trainers whose generators end in tanh (samples in [-1, 1], not [0, 1]).
+TANH_OUTPUT = ("ctgan", "tmg_gan")
 FAMILY_EPOCHS, FAMILY_CLF_EPOCHS = 100, 20
 # RAIN-GAN's attention history: one point per 50-epoch chunk, each the
 # mean of softmax probabilities over a single key.
@@ -676,7 +684,8 @@ def check_pipeline(result, ds):
 def family_pipeline(torch, tp, tconfig, name, ds):
     """`run_balance_pipeline` of trainer `name` at FAMILY_EPOCHS GAN and
     FAMILY_CLF_EPOCHS classifier epochs, the downstream classifier
-    warm-started from the companion. Returns a report."""
+    warm-started from the companion where there is one. Returns a
+    report."""
     import contextlib
     import io
     import tempfile
@@ -688,17 +697,19 @@ def family_pipeline(torch, tp, tconfig, name, ds):
     with tempfile.TemporaryDirectory() as tmp:
         settings = train_settings(tconfig, FAMILY_EPOCHS)
         settings.classifier.epochs = FAMILY_CLF_EPOCHS
-        settings.paths = tconfig.Paths(root=tmp)
+        settings.paths = tconfig.Paths(root=pathlib.Path(tmp))
         with contextlib.redirect_stdout(io.StringIO()):
             result = run_balance_pipeline(getattr(tp, cls_name), display, ds, out_dir=tmp,
                                           settings=settings, plot=False,
                                           generation_mode=mode, device="cuda")
         added, counts = check_pipeline(result, ds)
-    clf = result["classifier"].module
-    check(type(clf) is type(result["model"].state["classifier"]),
-          f"{name}: the downstream classifier is not the companion's kind")
+    clf, state = result["classifier"].module, result["model"].state
+    if "classifier" in state:
+        check(type(clf) is type(state["classifier"]),
+              f"{name}: the downstream classifier is not the companion's kind")
     return {"model": model_key, "gan_epochs": FAMILY_EPOCHS, "clf_epochs": FAMILY_CLF_EPOCHS,
-            "warm_start": type(clf).__name__, "generated_rows": added,
+            "warm_start": type(clf).__name__ if "classifier" in state else None,
+            "generated_rows": added,
             "augmented_counts": counts, "multiclass_metrics": result["multiclass_metrics"],
             "binary_metrics": result["binary_metrics"],
             "classifier_fit_seconds": result["classifier"].fit_seconds,
@@ -709,12 +720,15 @@ def serve_family(torch, model, ds, fused_mlp):
     """Every serving entry point of a fitted trainer of the family, for
     every class at SERVE_ROWS rows; for those of FAST_PATH the fused
     kernel's output of class 0 is held to the generator module run in
-    float64 on the same z, the others' fast path must raise. Returns a
+    float64 on the same z, the others' fast path must raise. QG-SMOTE also
+    serves from the prior and reports its latent quantiles; TMG-GAN's
+    qualified generation must give exactly each class's need. Returns a
     report."""
+    from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
     from cvaegan_tpu_torch.core.state import apply_eval
 
     report = {}
-    low = -1.0 if model.name == "ctgan" else 0.0
+    low = -1.0 if model.name in TANH_OUTPUT else 0.0
     fast_path = type(model).__name__ in FAST_PATH
     if model.conditional_sampling:
         for c in range(CLASSES):
@@ -746,7 +760,27 @@ def serve_family(torch, model, ds, fused_mlp):
             raised = True
         check(raised, f"{model.name}.generate_samples_fast did not raise")
         report["fast_path_raises"] = raised
-    if "classifier" in model.state:
+    if model.name == "qg_smote":
+        for c in range(CLASSES):
+            check_samples(model.generate_samples(c, SERVE_ROWS, method="prior"), SERVE_ROWS,
+                          "qg_smote.generate_samples(method='prior')")
+        stats = model.analyze_quantiles(0)
+        check(all(v.shape == (model.gan_cfg.z_size, model.state["encoder"].num_quantiles)
+                  and np.isfinite(v).all() for v in stats.values()),
+              "qg_smote.analyze_quantiles gave other shapes or non-finite values")
+        report["class0_quantile_means"] = stats["mean"].mean(axis=0).tolist()
+    if model.name == "tmg_gan":
+        counts = np.bincount(ds.tr_labels, minlength=CLASSES)
+        rows = {}
+        for c in range(CLASSES):
+            need = int(counts.max() - counts[c])
+            q = model.generate_qualified_samples(c, need)
+            check(q.shape == (need, FEATURES) and np.isfinite(q).all()
+                  and (np.abs(q) <= 1.0).all(),
+                  f"tmg_gan.generate_qualified_samples({c}, {need}) gave {q.shape}")
+            rows[str(c)] = [len(q), need]
+        report["qualified_rows_of_need"] = rows
+    elif "classifier" in model.state:
         qualified = {(c, thr): model.generate_qualified_samples(
             c, QUALIFIED_ROWS, confidence_threshold=thr)
             for c in range(CLASSES) for thr in (None, 0.0)}
@@ -759,7 +793,7 @@ def serve_family(torch, model, ds, fused_mlp):
             raised = True
         check(raised, f"{model.name}.generate_qualified_samples did not raise")
         report["qualified_raises"] = raised
-    if "encoder" in model.state:
+    if type(model).reconstruct_samples is not GenerativeTrainer.reconstruct_samples:
         x, y = ds.tr_samples[:RECON_ROWS], ds.tr_labels[:RECON_ROWS]
         recon = (model.reconstruct_samples(x, y) if model.conditional_sampling
                  else model.reconstruct_samples(x))
@@ -771,17 +805,30 @@ def serve_family(torch, model, ds, fused_mlp):
 def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
     """The `family` phase: for each trainer of FAMILY, a one-epoch
     captured fit against the eager one, a FAMILY_EPOCHS captured fit with
-    its gates, then its serving entry points with the kernels' launch
-    counts read around them, and for those of FAMILY_PIPELINES the
-    balance pipeline. Returns (report, gates missed, training launches
-    (fused, B2, B3), fast-path launches of B1)."""
+    its gates (its chunk-end hook's runs counted), then its serving entry
+    points with the kernels' launch counts read around them, and for those
+    of FAMILY_PIPELINES the balance pipeline. Returns (report, gates
+    missed, training launches (fused, B2, B3), fast-path launches of
+    B1)."""
+    import tempfile
+
     report, missed = {}, []
     train_launches, fast_launches = [0, 0, 0], 0
+    outs = tempfile.TemporaryDirectory()
     for name in FAMILY:
+        started = time.perf_counter()
         cls = getattr(tp, name)
+        hook_runs = []
+        hook = cls._on_chunk_end
+
+        def counted_hook(model, epochs_done, hook=hook, runs=hook_runs):
+            runs.append(epochs_done)
+            return hook(model, epochs_done)
 
         def fitted(epochs, eager=False):
-            m = cls(seed=0, device="cuda", settings=train_settings(tconfig, epochs))
+            settings = train_settings(tconfig, epochs)
+            settings.paths = tconfig.Paths(root=pathlib.Path(outs.name))  # TMG-GAN's scatters
+            m = cls(seed=0, device="cuda", settings=settings)
             m.verbose = False
             m.fit(ds, eager=eager)
             torch.cuda.synchronize()
@@ -804,9 +851,20 @@ def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
         init_class, init_class_eval = (class_loss_at_init(torch, fresh, ds)
                                        if "classifier" in fresh.state else (None, None))
         counter.reset()
+        own_hook = "_on_chunk_end" in vars(cls)
+        cls._on_chunk_end = counted_hook
         t0 = time.perf_counter()
-        model = fitted(FAMILY_EPOCHS)
+        try:
+            model = fitted(FAMILY_EPOCHS)
+        finally:
+            if own_hook:
+                cls._on_chunk_end = hook
+            else:
+                del cls._on_chunk_end
         seconds = time.perf_counter() - t0
+        chunk = min(model.epoch_chunk, FAMILY_EPOCHS)
+        want_runs = list(range(chunk, FAMILY_EPOCHS + 1, chunk))
+        check(hook_runs == want_runs, f"{name}: chunk hook ran at {hook_runs}, not {want_runs}")
         check((counter.replays, counter.epochs) == (FAMILY_EPOCHS, 1),
               f"{name}: {counter.replays} replays, {counter.epochs} epoch calls")
         hist = {k: np.asarray(v) for k, v in model.loss_history.items()}
@@ -868,8 +926,10 @@ def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
             "epoch0": {k: float(v[0]) for k, v in hist.items()},
             "last10_mean": {k: float(v[-10:].mean()) for k, v in hist.items()},
             **({"attention_history": attention} if attention is not None else {}),
-            "fused_launches": launches, **served,
-            **({"pipeline": pipeline} if pipeline is not None else {})}
+            "chunk_hook_runs": len(hook_runs), "fused_launches": launches, **served,
+            **({"pipeline": pipeline} if pipeline is not None else {}),
+            "wall_seconds": time.perf_counter() - started}
+    outs.cleanup()
     return report, missed, train_launches, fast_launches
 
 
@@ -1359,7 +1419,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         settings = train_settings(tconfig, GAN_EPOCHS)
-        settings.paths = tconfig.Paths(root=tmp)
+        settings.paths = tconfig.Paths(root=pathlib.Path(tmp))
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             result = run_balance_pipeline(CVAEGAN, "CVAE_GAN", ds, out_dir=tmp,
@@ -1419,7 +1479,7 @@ def main() -> int:
     emit({"phase": "breakdown", "call": "eager strict epoch", "card": card,
           **breakdown(torch, eager_epoch, 1e3 / eager_rate, calls=2, top=8)})
 
-    # 8. the other MLP trainers ---------------------------------------------
+    # 8. the other trainers -------------------------------------------------
     family, family_missed, family_train, family_fast = family_phase(
         torch, tp, tconfig, ds, fused_mlp, ba, counter)
     emit({"phase": "family", "card": card, "rows": len(ds.tr_labels),
@@ -1472,7 +1532,8 @@ def main() -> int:
          "source": "cvaegan_tpu_torch/csrc/fused_mlp4.cu",
          "replaces": "cvaegan_tpu/kernels/fused_mlp.py:44",
          "launches": launches["total"] + family_fast + bank_fast,
-         "launches_by_path": {"cvae_gan": launches["total"], "cgan_cvae": family_fast,
+         "launches_by_path": {"cvae_gan": launches["total"],
+                              "family_fast_paths": family_fast,
                               "seed_bank_replica": bank_fast},
          "launches_by_variant": launches,
          "training_launches": training_launches[0],

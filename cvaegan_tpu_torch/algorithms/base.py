@@ -146,14 +146,19 @@ class GenerativeTrainer:
         raise NotImplementedError
 
     def _build_optimizers(self, nets: Dict[str, nn.Module]) -> Dict[str, Adam]:
-        """One Adam per trained network: `g_lr` for the encoder and the
-        generator or decoder, `d_lr` for the critic, `c_lr` for the
-        companion classifier, betas `adam_b1`/`adam_b2`."""
+        """One Adam per trained network: `g_lr` for the encoder, the
+        generator or decoder and QG-SMOTE's quantile regressor, `d_lr` for
+        the critic, `c_lr` for the companion classifier, betas
+        `adam_b1`/`adam_b2`."""
         cfg = self.gan_cfg
         lrs = {"encoder": cfg.g_lr, "generator": cfg.g_lr, "decoder": cfg.g_lr,
-               "discriminator": cfg.d_lr, "classifier": cfg.c_lr}
+               "regressor": cfg.g_lr, "discriminator": cfg.d_lr, "classifier": cfg.c_lr}
         return {k: adam(net, lrs[k], cfg.adam_b1, cfg.adam_b2)
                 for k, net in nets.items() if k in lrs}
+
+    #: fills the state and the optimizers from a JAX state tree
+    #: (`load_jax_state`)
+    _state_from_jax = staticmethod(convert.state_from_jax)
 
     @staticmethod
     def _jax_dims(tree) -> Tuple[int, Optional[int], int]:
@@ -380,7 +385,7 @@ class GenerativeTrainer:
                 self.feature_num, self.label_num):
             self.feature_num, self.label_num = feature_num, label_num
             self.state = self._build_state()
-        convert.state_from_jax(tree, self.state, self.optimizers)
+        self._state_from_jax(tree, self.state, self.optimizers)
         self._clear_gen_caches()
 
     def _require_state(self) -> None:
@@ -577,13 +582,19 @@ class GenerativeTrainer:
             while cap < num:
                 cap *= 2
             self._qualified_caps.add(cap)
-        cand = min(4096, cap)
+        return self._filtered(target_label, num, confidence_threshold, min(4096, cap),
+                              self._prior)
+
+    def _filtered(self, target_label: int, num: int, confidence_threshold: float,
+                  cand: int, latents) -> np.ndarray:
+        """The confidence filter's loop: candidate batches of `cand` rows
+        decoded from `latents(cand)` until `num` rows pass or 20 batches
+        have passed none."""
         labels = self._labels(target_label, cand)
         fstate = self._filter_state(self.state)
-
         kept, count, patience = [], 0, QUALIFIED_PATIENCE
         while count < num and patience > 0:
-            x = self._generator_forward(self.state, self._prior(cand), labels)
+            x = self._generator_forward(self.state, latents(cand), labels)
             probs = torch.softmax(self._classifier_logits(fstate, x), dim=-1)
             valid = ((probs.amax(dim=-1) > confidence_threshold)
                      & (probs.argmax(dim=-1) == labels))

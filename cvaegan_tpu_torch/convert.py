@@ -24,7 +24,14 @@ of the port's modules:
   * a CTGAN `ResidualBlock_{i}` holds its two Linears and its shortcut as
     `Dense_{0,1,2}` (`SpectralDense_{0,1,2}` in the critic) and its
     BatchNorms as `BatchNorm_{0,1}`; `ModeSpecificNormalization` holds
-    `gamma` and `beta`.
+    `gamma` and `beta`;
+  * a QG-SMOTE `QuantileEncoder` holds `MLPTrunk_0` and its head as
+    `Dense_0`, a `QuantileRegressor` its Linears as `Dense_{0,1,2}`;
+  * a TMG-GAN `TMGCD` holds its trunk and score as `SpectralDense_{0..3}`
+    and its class head as `Dense_0`; a `TMGGenerator` holds `MLPTrunk_0`
+    and `Dense_0`. The JAX TMG-GAN stacks its per-class generators' trees
+    (Adam state included) on a leading axis of one entry per class;
+    `tmg_gan_state_from_jax` splits it.
 
 A network's tree may also hold `opt_state`: its optax Adam state as
 `{"count", "mu", "nu"}`, with `mu` and `nu` shaped like `params`. It goes
@@ -42,7 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cvaegan_tpu_torch.models import attention, ctgan, mlp, sngan
+from cvaegan_tpu_torch.models import attention, ctgan, mlp, quantile, sngan, tmg
 from cvaegan_tpu_torch.models.layers import (
     BatchNorm,
     Dense,
@@ -205,6 +212,12 @@ def net_leaves(net: nn.Module) -> Leaves:
     if isinstance(net, ctgan.ModeSpecificNormalization):
         return {("params", "gamma"): (net.gamma, False),
                 ("params", "beta"): (net.beta, False)}
+    if isinstance(net, (quantile.QuantileEncoder, tmg.TMGGenerator)):
+        return {**_trunk(trunk, net.trunk), **_linear(("Dense_0",), net.head)}
+    if isinstance(net, quantile.QuantileRegressor):
+        return _named((), net.layers)
+    if isinstance(net, tmg.TMGCD):
+        return _named((), [*net.layers, net.score, net.classes])
     raise TypeError(f"no Flax layout known for {type(net).__name__}")
 
 
@@ -315,6 +328,20 @@ def ctgan_dims(tree: Mapping) -> Tuple[int, int, int]:
     return feature_num, label_num, z_size
 
 
+#: a QG-SMOTE tree reads as a CVAE-GAN's: its encoder's `MLPTrunk_0` takes
+#: concat(x, onehot(y)), its generator's concat(z, onehot(y))
+qg_smote_dims = cvaegan_dims
+
+
+def tmg_gan_dims(tree: Mapping) -> Tuple[int, int, int]:
+    """(feature_num, label_num, z_size) of a JAX TMG-GAN state tree, whose
+    generators are stacked on a leading axis of one per class."""
+    gens = tree["gens"]["params"]
+    label_num, z_size = (int(n) for n in np.shape(gens["MLPTrunk_0"]["Dense_0"]["kernel"])[:2])
+    feature_num = int(np.shape(gens["Dense_0"]["kernel"])[2])
+    return feature_num, label_num, z_size
+
+
 def state_from_jax(tree: Mapping, state: nn.ModuleDict,
                    optimizers: Optional[Mapping] = None) -> nn.ModuleDict:
     """Fill a trainer's state (its networks by name: `encoder`,
@@ -340,3 +367,36 @@ def state_from_jax(tree: Mapping, state: nn.ModuleDict,
 
 #: a RAIN-GAN's state is filled network by network, as a CVAE-GAN's is
 rain_gan_state_from_jax = state_from_jax
+
+
+def _split(tree: Mapping, i: int):
+    """Entry `i` of every leaf of a tree stacked on a leading axis."""
+    return {k: (_split(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
+            for k, v in tree.items()}
+
+
+def tmg_gan_state_from_jax(tree: Mapping, state: nn.ModuleDict,
+                           optimizers: Optional[Mapping] = None) -> nn.ModuleDict:
+    """Fill a TMG-GAN's state: `cd` as `state_from_jax` fills a network,
+    and `gens` (an `nn.ModuleList` of one `TMGGenerator` per class) from
+    the tree's stacked `gens`, entry i of every leaf (its Adam `count`
+    `[L]` included) into generator i and its Adam `optimizers["gens.{i}"]`."""
+    if set(tree) != set(state.keys()):
+        raise ValueError(f"networks in the tree {sorted(tree)} differ from "
+                         f"the port's {sorted(state.keys())}")
+    state_from_jax({"cd": tree["cd"]}, nn.ModuleDict({"cd": state["cd"]}), optimizers)
+    variables = dict(tree["gens"])
+    opt_state = variables.pop("opt_state", None)
+    gens = state["gens"]
+    stacked = {len(leaf) for leaf in _flatten(variables).values()}
+    if stacked != {len(gens)}:
+        raise ValueError(f"gens: leading axes {sorted(stacked)} in the tree, "
+                         f"{len(gens)} generators in the port")
+    for i, gen in enumerate(gens):
+        load_net(gen, _split(variables, i))
+        if opt_state is not None:
+            if optimizers is None:
+                raise ValueError("gens: the tree holds optimizer state, the port "
+                                 "has no optimizer for it")
+            load_adam(optimizers[f"gens.{i}"], gen, _split(opt_state, i))
+    return state

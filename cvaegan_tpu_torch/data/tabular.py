@@ -5,13 +5,15 @@ value object in place of the reference's import-time module-global
 tensors (`src/datasets/__init__.py:11-44`). Arrays stay numpy on the
 host; trainers move them to their device.
 
-`load_csv` takes the pandas route only (the native C++ loader is ROADMAP
-item A18). pandas and sklearn are imported lazily, inside the functions
-that need them.
+`load_csv` takes the pandas route where pandas is installed, else the
+standard `csv` module's (the GPU machine has no pandas); the native C++
+loader is ROADMAP item A18. pandas and sklearn are imported lazily,
+inside the functions that need them.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import pathlib
 from typing import Optional, Tuple
@@ -21,13 +23,37 @@ import numpy as np
 
 def load_csv(file_path) -> np.ndarray:
     """Headerless CSV -> float32 array, non-numeric coerced, NaN -> 0."""
-    import pandas as pd
+    try:
+        import pandas as pd
+    except ImportError:
+        return _load_csv_plain(file_path)
 
     data = pd.read_csv(file_path, header=None, low_memory=False)
     for col in data.columns:
         data[col] = pd.to_numeric(data[col], errors="coerce")
     data = data.fillna(0)
     return np.asarray(data.values, dtype=np.float32)
+
+
+def _load_csv_plain(file_path) -> np.ndarray:
+    """`load_csv` without pandas, as pandas reads such a file: blank lines
+    skipped, the first row fixing the width (a longer row raises, a
+    shorter one is padded), fields that do not parse as numbers and NaN
+    as 0."""
+    with open(file_path, newline="") as f:
+        rows = [row for row in csv.reader(f) if row]
+    width = len(rows[0]) if rows else 0
+    out = np.zeros((len(rows), width), np.float64)
+    for i, row in enumerate(rows):
+        if len(row) > width:
+            raise ValueError(f"{file_path}: line {i + 1} has {len(row)} fields, "
+                             f"the first has {width}")
+        for j, field in enumerate(row):
+            try:
+                out[i, j] = float(field)
+            except ValueError:
+                pass
+    return np.where(np.isnan(out), 0.0, out).astype(np.float32)
 
 
 def minmax_scale(x: np.ndarray) -> np.ndarray:

@@ -18,8 +18,10 @@ Run a trainer's pipeline with
 `cvae_gan`); each runs the generation mode the JAX study gives it
 (`experiments/ours_multiseed.py:35-47`). The flags are the JAX CLI's
 plus `--model` and `--device`; `--streamed` (the out-of-core pipeline)
-is ROADMAP item A18 and raises. Plots need matplotlib and sklearn, the
-`blobs` and `imbalanced` fixtures sklearn.
+is ROADMAP item A18 and raises. Plots need matplotlib and sklearn: where
+either is missing (the GPU machine has neither), the pipeline says so in
+one line and writes none. The `blobs` and `imbalanced` fixtures need
+sklearn; a csv dir needs neither, nor pandas.
 """
 
 from __future__ import annotations
@@ -47,7 +49,21 @@ TRAINERS = {
     "rain_gan": ("RAIN_GAN", "RAIN_GAN", "qualified"),
     "sngan": ("SNGAN", "SNGAN", "qualified"),
     "ctgan": ("CTGAN", "CTGAN", "qualified"),
+    "qg_smote": ("QG_SMOTE", "QG_SMOTE", "qualified"),
+    "tmg_gan": ("TMGGAN", "TMG_GAN", "tmg"),
 }
+
+
+def _can_plot() -> bool:
+    """Whether matplotlib and sklearn, which the plots need, are installed;
+    says in one line that no plot is written where they are not."""
+    try:
+        import matplotlib  # noqa: F401
+        import sklearn  # noqa: F401
+    except ImportError as e:
+        print(f"no plots are written: {e.name} is not installed")
+        return False
+    return True
 
 
 def load_dataset(name: str, seed: int = 0) -> TabularDataset:
@@ -93,6 +109,7 @@ def run_balance_pipeline(
     pipeline then skips construction and `fit`."""
     settings = settings or config_lib.settings
     seed = settings.seed if seed is None else seed
+    plot = plot and _can_plot()
     out_dir = Path(out_dir) if out_dir else Path.cwd()
     out_dir.mkdir(parents=True, exist_ok=True)
     t_start = time.time()

@@ -32,6 +32,9 @@ def test_import_loads_no_jax():
             "import cvaegan_tpu_torch.algorithms.seed_bank, cvaegan_tpu_torch.models.banked\n"
             "import cvaegan_tpu_torch.algorithms.sngan, cvaegan_tpu_torch.algorithms.ctgan\n"
             "import cvaegan_tpu_torch.models.sngan, cvaegan_tpu_torch.models.ctgan\n"
+            "import cvaegan_tpu_torch.algorithms.qg_smote, cvaegan_tpu_torch.algorithms.tmg_gan\n"
+            "import cvaegan_tpu_torch.models.quantile, cvaegan_tpu_torch.models.tmg\n"
+            "from cvaegan_tpu_torch import QG_SMOTE, TMGGAN\n"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=PACKAGE.parent, timeout=120)
@@ -97,6 +100,22 @@ def test_load_csv_matches_jax(tmp_path):
     np.testing.assert_array_equal(ttabular.load_csv(path), jtabular.load_csv(path))
 
 
+def test_load_csv_without_pandas_reads_as_pandas(monkeypatch, tmp_path):
+    """The GPU machine has no pandas: the standard `csv` module's route
+    gives pandas' array (blank lines skipped, a short row padded, quoted and
+    non-numeric fields, NaN as 0), and a row longer than the first raises."""
+    path = tmp_path / "x.csv"
+    path.write_text('1,2.5,abc\n,4,5\n\n7,8\n"9",nan,-3e2\n')
+    want = ttabular.load_csv(path)
+    monkeypatch.setitem(sys.modules, "pandas", None)
+    got = ttabular.load_csv(path)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype == np.float32
+    path.write_text("1,2\n3,4,5\n")
+    with pytest.raises(ValueError, match="fields"):
+        ttabular.load_csv(path)
+
+
 @pytest.mark.parametrize("name", ["CVAEGAN", "CGAN", "CVAE", "GAN", "VAE", "VAEGAN"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, name):
     from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
@@ -113,7 +132,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, name):
     assert SeedBank(cls, seeds=[0], device="cpu").trainers[0].device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", ["RAIN_GAN", "SNGAN", "CTGAN"])
+@pytest.mark.parametrize("name", ["RAIN_GAN", "SNGAN", "CTGAN", "QG_SMOTE", "TMGGAN"])
 def test_new_trainers_need_cuda_unless_asked_for_cpu(monkeypatch, name):
     from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
 

@@ -111,6 +111,43 @@ def test_new_modules_load_no_jax():
     assert not loaded, loaded
 
 
+def _csv_dir(path, rows=300, features=12, classes=5, seed=0):
+    """A dataset directory of headerless `{x,y}_{train,test}.csv`, y one-hot."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-5.0, 5.0, (classes, features))
+    y = np.arange(rows) % classes
+    x = centres[y] + rng.standard_normal((rows, features))
+    path.mkdir()
+    for split, idx in (("train", slice(0, rows - 50)), ("test", slice(rows - 50, rows))):
+        np.savetxt(path / f"x_{split}.csv", x[idx], delimiter=",")
+        np.savetxt(path / f"y_{split}.csv", np.eye(classes)[y[idx]], delimiter=",", fmt="%d")
+    return path
+
+
+@pytest.mark.parametrize("model", ["qg_smote", "tmg_gan"])
+def test_cli_runs_without_pandas_matplotlib_or_sklearn(monkeypatch, capsys, tmp_path, model):
+    """The CLI as the GPU machine runs it (no pandas, matplotlib or sklearn):
+    a csv dir loads through the standard `csv` module, and the pipeline
+    writes its artifact and says once that it writes no plot."""
+    from cvaegan_tpu_torch.algorithms.tmg_gan import TMGGAN
+
+    data = _csv_dir(tmp_path / "data")
+    settings = tconfig.Settings()
+    settings.paths = tconfig.Paths(root=tmp_path / "paths")
+    monkeypatch.setattr(tconfig, "settings", settings)
+    monkeypatch.setattr(TMGGAN, "_said_no_plot", False)
+    for name in ("pandas", "matplotlib", "sklearn"):
+        monkeypatch.setitem(sys.modules, name, None)
+    result = tbalance.main(["--model", model, "--dataset", str(data), "--epochs", "1",
+                            "--clf-epochs", "1", "--device", "cpu",
+                            "--out-dir", str(tmp_path / "out")])
+    assert type(result["model"]).__name__ == tbalance.TRAINERS[model][0]
+    assert result["pickle_path"].exists()
+    assert len(result["augmented"].tr_labels) >= 250
+    out = capsys.readouterr().out
+    assert out.count("no plots are written: matplotlib is not installed") == 1
+
+
 @pytest.mark.slow
 def test_full_pipeline_reaches_macro_f1_one(tmp_path):
     """The reference budget (500 GAN epochs, 100 classifier epochs) on the

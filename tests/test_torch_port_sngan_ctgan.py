@@ -646,7 +646,7 @@ def test_pipeline_with_warm_start(tmp_path, model):
     assert tbalance.TRAINERS[args.model][0] == model.upper()
 
 
-@pytest.mark.parametrize("name", ["RAIN_GAN", "SNGAN", "CTGAN"])
+@pytest.mark.parametrize("name", ["RAIN_GAN", "SNGAN", "CTGAN", "QG_SMOTE", "TMGGAN"])
 def test_seed_bank_refuses_at_construction(name):
     with pytest.raises(NotImplementedError, match="A24"):
         SeedBank(getattr(cvaegan_tpu_torch, name), seeds=[0, 1], device="cpu")

@@ -1,0 +1,480 @@
+"""The port's TMG-GAN against the JAX package's.
+
+Built as `tests/test_torch_port_sngan_ctgan.py` is: a JAX trainer is
+prepared on the blob fixture (no fit), its BatchNorm statistics and CD's
+spectral u/v are moved off their initial values (u/v then power-iterated)
+and its Adam moments drawn by numpy (|mu| < 2e-4, nu in [1e-8, 1e-6]; CD's
+count 3, the generators' counts 3 to 7, one per generator), and the
+state, Adam state included, is carried into the port with
+`load_jax_state`, which splits JAX's stacked generator bank into one
+generator and one Adam per class. Each CD, G and diversity step then runs
+on both sides from that state, on the same inputs (drawn on the JAX side
+from the step's own key split) and the same dropout keep-masks: losses,
+every parameter, BatchNorm statistic, spectral u/v and Adam tensor, and
+each generator's Adam step count, agree at rtol 1e-5, atol 1e-6. The G
+step runs at epoch 350 and at epoch 1000, where the cosine term turns on.
+
+Also here: the networks' forwards, the epoch's order of steps and the
+per-generator step counts after a 1-epoch fit with and without an absent
+class, mixed-label generation, qualified generation (exactly `num` rows,
+the fallback after 10 empty batches, a candidate batch that never
+shrinks), the refusals, the chunk hook's scatter and its note without
+matplotlib, `load_jax_state`'s accounting of every leaf and a 2-epoch
+pipeline.
+"""
+
+import copy
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_port_family import (  # noqa: F401  (masks is a fixture)
+    TOL,
+    _lookup,
+    _t,
+    _tree,
+    _warm_state,
+    masks,
+)
+from test_torch_port_qg_smote import errors_over_tol, float64_runs
+from test_torch_port_sngan_ctgan import power_iterated
+
+import cvaegan_tpu
+import cvaegan_tpu_torch
+from cvaegan_tpu.data.sampler import sample_class_batch
+from cvaegan_tpu_torch.algorithms.tmg_gan import TMGGAN
+from cvaegan_tpu_torch.convert import net_leaves
+from cvaegan_tpu_torch.core import config as tconfig
+from cvaegan_tpu_torch.data.tabular import TabularDataset
+from cvaegan_tpu_torch.models import mlp
+from cvaegan_tpu_torch.pipelines import balance as tbalance
+
+CLASS_ID = 2
+GEN_COUNTS = (3, 4, 5, 6, 7)
+#: the diversity step: the JAX package's float32 step lies up to ~1.4x
+#: rtol 1e-5, atol 1e-6 from a float64 run, where the port's lies within
+#: it (`test_diversity_step_against_float64`)
+DIV_TOL = dict(rtol=1e-5, atol=5e-6)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+_JAX = {}
+
+
+def jax_twin(blob_dataset):
+    """(JAX TMG-GAN, its warm state, the state as numpy trees), built once."""
+    if not _JAX:
+        jt = cvaegan_tpu.TMGGAN(seed=0)
+        jt.verbose = False
+        jt._prepare(blob_dataset)
+        state = power_iterated(_warm_state(jt, 40))
+        gens = state["gens"]
+        adam_state, *rest = gens.opt_state
+        adam_state = adam_state._replace(count=jnp.asarray(GEN_COUNTS, jnp.int32))
+        state["gens"] = gens.replace(opt_state=(adam_state, *rest))
+        jt.state = state
+        jt._clear_gen_caches()
+        _JAX["twin"] = (jt, state, _tree(state))
+    return _JAX["twin"]
+
+
+def port_twin(blob_dataset):
+    _, _, tree = jax_twin(blob_dataset)
+    port = TMGGAN(seed=0, device="cpu")
+    port._prepare((blob_dataset.tr_samples, blob_dataset.tr_labels))
+    port.load_jax_state(tree)
+    return port
+
+
+def _entry(tree, i):
+    """Entry i of every leaf of a tree stacked on a leading axis."""
+    return jax.tree.map(lambda a: np.asarray(a)[i], tree)
+
+
+def _assert_net(net, opt, tree, where, tol=TOL):
+    """Every tensor of a port network, its Adam moments and step count
+    against one network's numpy tree (Adam state under `opt_state`)."""
+    slot = {id(p): i for i, p in enumerate(opt.params)}
+    for path, (tensor, transposed) in net_leaves(net).items():
+        want = _lookup(tree, path)
+        at = f"{where}/{'/'.join(path)}"
+        np.testing.assert_allclose(tensor.detach().numpy(), want.T if transposed else want,
+                                   err_msg=at, **tol)
+        if path[0] == "params":
+            for moment, got in (("mu", opt.m), ("nu", opt.v)):
+                m = _lookup(tree["opt_state"][moment], path[1:])
+                np.testing.assert_allclose(got[slot[id(tensor)]].numpy(),
+                                           m.T if transposed else m,
+                                           err_msg=f"{at} Adam {moment}", **tol)
+    assert int(opt.count) == int(tree["opt_state"]["count"]), where
+
+
+def _assert_state_matches(port, jstate, tol=TOL):
+    """CD and every generator, each with its own Adam."""
+    tree = _tree(jstate)
+    assert set(tree) == set(port.state.keys()) == {"cd", "gens"}
+    _assert_net(port.state["cd"], port.optimizers["cd"], tree["cd"], "cd", tol)
+    assert len(port.state["gens"]) == len(tree["gens"]["opt_state"]["count"])
+    for i, gen in enumerate(port.state["gens"]):
+        _assert_net(gen, port.optimizers[f"gens.{i}"], _entry(tree["gens"], i), f"gens.{i}",
+                    tol)
+
+
+# ------------------------------------------------------------ networks
+@pytest.mark.parametrize("train", [True, False])
+def test_cd_matches_jax(train, masks, blob_dataset):  # noqa: F811
+    """CD's (score, probs, hidden) in train mode (dropout, one power
+    iteration) and eval mode, and its u/v after."""
+    jt, state, tree = jax_twin(blob_dataset)
+    port = port_twin(blob_dataset)
+    x = blob_dataset.tr_samples[:96]
+    c = state["cd"]
+    variables = {"params": c.params, **c.mutables}
+    if train:
+        want, mut = jt.modules["cd"].apply(variables, jnp.asarray(x), train=True,
+                                           rngs={"dropout": jax.random.PRNGKey(1)},
+                                           mutable=["spectral"])
+        spectral = jax.device_get(dict(mut))["spectral"]
+    else:
+        want = jt.modules["cd"].apply(variables, jnp.asarray(x), train=False)
+        spectral = tree["cd"]["spectral"]
+    with torch.no_grad():
+        got = port.state["cd"].train(train)(torch.from_numpy(x), port.generator)
+    assert not masks
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    for path, (tensor, _) in net_leaves(port.state["cd"]).items():
+        if path[0] == "spectral":
+            np.testing.assert_allclose(tensor.numpy(), _lookup(spectral, path[1:]), **TOL)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_generator_matches_jax(train, blob_dataset):
+    """Generator i of the bank: (samples, hidden) and, in train mode, its
+    BatchNorm statistics after."""
+    jt, state, _ = jax_twin(blob_dataset)
+    port = port_twin(blob_dataset)
+    z = np.random.default_rng(2).standard_normal((64, 128)).astype(np.float32)
+    for i in (0, 3):
+        x, hidden, muts = jt._gen_forward_slice(state["gens"], i, jnp.asarray(z), train)
+        gen = port.state["gens"][i].train(train)
+        with torch.no_grad():
+            got_x, got_h = gen(torch.from_numpy(z))
+        np.testing.assert_allclose(got_x.numpy(), np.asarray(x), **TOL)
+        np.testing.assert_allclose(got_h.numpy(), np.asarray(hidden), **TOL)
+        muts = jax.device_get(muts)
+        for path, (tensor, _) in net_leaves(gen).items():
+            if path[0] == "batch_stats":
+                np.testing.assert_allclose(tensor.numpy(), _lookup(muts, path), **TOL)
+
+
+# ---------------------------------------------------------------- steps
+def _steps(kind, jt, port, key, epoch):
+    """(the JAX step as a function of (state, key), the port's step on the
+    same inputs as a thunk)."""
+    data, cfg = jt._data, jt.gan_cfg
+    if kind == "div":
+        z = jax.random.normal(key, (jt.label_num, 3, cfg.z_size))
+        (z_t,) = _t(z)
+        return jt._diversity_step, lambda: port._diversity_step(z_t)
+    k_x, k_z, *_ = jax.random.split(key, 3 if kind == "cd" else 4)
+    x, z = _t(sample_class_batch(k_x, data["index"], data["samples"], CLASS_ID,
+                                 cfg.batch_size),
+              jax.random.normal(k_z, (cfg.batch_size, cfg.z_size)))
+    y = torch.full((cfg.batch_size,), CLASS_ID, dtype=torch.int64)
+    if kind == "cd":
+        return (lambda s, k: jt._cd_step(s, data, CLASS_ID, k),
+                lambda: port._cd_step(x, y, z, CLASS_ID))
+    return (lambda s, k: jt._g_step(s, data, CLASS_ID, jnp.float32(epoch), k),
+            lambda: port._g_step(x, y, z, CLASS_ID, torch.tensor(epoch)))
+
+
+@pytest.mark.parametrize("kind,epoch", [("cd", 350.0), ("g", 350.0),
+                                        ("cd", 1000.0), ("g", 1000.0), ("div", None)])
+def test_steps_match_jax(kind, epoch, masks, blob_dataset):  # noqa: F811
+    """Each step from the same state: its loss, then CD's and every
+    generator's tensors, BatchNorm statistics, u/v, Adam moments and step
+    counts. The G step advances its class's generator's count alone, the
+    diversity step every generator's; the diversity step's BatchNorm runs
+    over each generator's own 3 rows (held at DIV_TOL)."""
+    jt, state, _ = jax_twin(blob_dataset)
+    port = port_twin(blob_dataset)
+    key = jax.random.PRNGKey(60 + ["cd", "g", "div"].index(kind))
+    jax_step, port_step = _steps(kind, jt, port, key, epoch)
+    new_state, want = jax.jit(jax_step)(state, key)
+    got = port_step()
+    assert not masks
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    _assert_state_matches(port, new_state, DIV_TOL if kind == "div" else TOL)
+    counts = [int(port.optimizers[f"gens.{i}"].count) for i in range(5)]
+    step = {"div": [1] * 5, "g": [int(i == CLASS_ID) for i in range(5)]}.get(kind, [0] * 5)
+    assert counts == [c + s for c, s in zip(GEN_COUNTS, step)]
+    assert int(port.optimizers["cd"].count) == 3 + (kind == "cd")
+
+
+def test_diversity_step_against_float64(monkeypatch, blob_dataset):
+    """Why the diversity step is held at DIV_TOL: each generator's
+    BatchNorm normalises over its 3 rows alone, and the backward through
+    such a batch amplifies float32 rounding (a unit's variance over 3 rows
+    can be near its eps). The port's float32 step lies within rtol 1e-5,
+    atol 1e-6 of the same step in float64 (the port's code in float64: the
+    JAX step's semantics, as the float32 agreement of CD and the other
+    steps shows); the JAX package's float32 step does not, and lies within
+    DIV_TOL."""
+    jt, state, _ = jax_twin(blob_dataset)
+    key = jax.random.PRNGKey(62)
+    f32, f64, from_jax = float64_runs(
+        monkeypatch, "test_torch_port_tmg_gan", lambda: port_twin(blob_dataset),
+        lambda port: _steps("div", jt, port, key, None), state, key)
+    port_err, jax_err = errors_over_tol(f32, f64), errors_over_tol(from_jax, f64)
+    assert port_err <= 1.0, port_err
+    assert jax_err > 1.0, jax_err
+    assert errors_over_tol(from_jax, f64, DIV_TOL) <= 1.0, jax_err
+
+
+def test_cosine_term_turns_on_at_epoch_1000(blob_dataset):
+    """The G step's loss at epoch 999 and 1000 differs by the cosine term
+    alone, read from the device epoch."""
+    losses = {}
+    for epoch in (999.0, 1000.0):
+        port = port_twin(blob_dataset)
+        _, step = _steps("g", jax_twin(blob_dataset)[0], port, jax.random.PRNGKey(7), epoch)
+        losses[epoch] = float(step())
+    assert losses[999.0] != losses[1000.0]
+    assert -1.0 <= losses[999.0] - losses[1000.0] <= 1.0
+
+
+# ---------------------------------------------------------------- epoch
+def _small_data(absent=None, features=12, rows=100):
+    rng = np.random.default_rng(0)
+    x = rng.random((rows, features), dtype=np.float32)
+    y = (np.arange(rows) % 5).astype(np.int32)
+    if absent is not None:
+        y[y == absent] = 0
+    return x, y
+
+
+def _small_settings(tmp_path=None, epochs=1):
+    settings = tconfig.Settings()
+    settings.gan.batch_size, settings.gan.epochs = 16, epochs
+    if tmp_path is not None:
+        settings.paths = tconfig.Paths(root=tmp_path)
+    return settings
+
+
+@pytest.mark.parametrize("absent", [None, 2])
+def test_epoch_order_and_step_counts(monkeypatch, tmp_path, absent):
+    """Per present class in order, CD x c_loop_num then G x g_loop_num, then
+    one diversity step over every generator: after one epoch each present
+    class's generator has taken 3 + 1 Adam steps, an absent class's 1."""
+    port = TMGGAN(seed=0, device="cpu", settings=_small_settings(tmp_path))
+    port.verbose = False
+    port._prepare(_small_data(absent))
+    calls = []
+    for attr in ("_cd_step", "_g_step", "_diversity_step"):
+        step = getattr(port, attr)
+
+        def wrapped(*args, _attr=attr, _step=step):
+            out = _step(*args)
+            calls.append((_attr, args[3] if _attr != "_diversity_step" else None,
+                          float(out)))
+            return out
+
+        monkeypatch.setattr(port, attr, wrapped)
+    port._fit_prepared(1)
+    present = [c for c in range(5) if c != absent]
+    want = [(kind, c) for c in present for kind in ["_cd_step"] * 5 + ["_g_step"] * 3]
+    assert [c[:2] for c in calls] == [*want, ("_diversity_step", None)]
+    assert port._steps_per_epoch() == len(calls) == 8 * len(present) + 1
+    counts = [int(port.optimizers[f"gens.{i}"].count) for i in range(5)]
+    assert counts == [4 if c in present else 1 for c in range(5)]
+    assert int(port.optimizers["cd"].count) == 5 * len(present)
+    last_d = [c[2] for c in calls if c[0] == "_cd_step"][-1]
+    last_g = [c[2] for c in calls if c[0] == "_g_step"][-1]
+    assert {k: v[0] for k, v in port.loss_history.items()} == {"d_loss": last_d,
+                                                               "g_loss": last_g}
+
+
+# ----------------------------------------------------------- generation
+def test_mixed_label_generation(blob_dataset):
+    """Each row through its own label's generator
+    (`tests/test_training_smoke.py::test_tmg_mixed_label_generation`), and
+    the same rows as the JAX package's bank forward."""
+    jt, state, _ = jax_twin(blob_dataset)
+    port = port_twin(blob_dataset)
+    z = np.random.default_rng(7).standard_normal((6, 128)).astype(np.float32)
+    labels = np.asarray([0, 1, 2, 3, 4, 0])
+    mixed = port._generator_forward(port.state, torch.from_numpy(z), torch.from_numpy(labels))
+    want = jt._generator_forward(state, jnp.asarray(z), jnp.asarray(labels), None)
+    np.testing.assert_allclose(mixed.numpy(), np.asarray(want), **TOL)
+    for c in range(5):
+        uniform = port._generator_forward(port.state, torch.from_numpy(z),
+                                          torch.full((6,), c))
+        rows = np.flatnonzero(labels == c)
+        np.testing.assert_allclose(mixed.numpy()[rows], uniform.numpy()[rows], **TOL)
+    out = port.generate_samples(3, 50)
+    assert out.shape == (50, 30) and out.dtype == np.float32
+    assert out.min() >= -1.0 and out.max() <= 1.0
+    probs = port._classifier_logits(port.state, torch.from_numpy(out))
+    np.testing.assert_allclose(probs.sum(-1).numpy(), 1.0, rtol=1e-6)
+
+
+def _record_batches(monkeypatch, port, label, valid_every):
+    """The candidate batches qualified sampling draws; CD's verdict
+    replaced by one that gives `label` to every `valid_every`-th row and
+    another class to the rest (to every row when `valid_every` is 0)."""
+    batches = []
+    forward = port._generator_forward
+
+    def recorded(state, z, labels):
+        batches.append(forward(state, z, labels))
+        return batches[-1]
+
+    def verdict(state, x):
+        rows = torch.arange(x.shape[0])
+        accept = rows % valid_every == 0 if valid_every else torch.zeros_like(rows).bool()
+        classes = torch.where(accept, label, (label + 1) % 5)
+        return torch.nn.functional.one_hot(classes, 5).float()
+
+    monkeypatch.setattr(port, "_generator_forward", recorded)
+    monkeypatch.setattr(port, "_classifier_logits", verdict)
+    return batches
+
+
+def test_qualified_returns_exactly_num(monkeypatch, blob_dataset):
+    """Rows whose CD argmax is the class, first batch first, cut at `num`;
+    candidate batches of the smallest power of two >= min(4096, 2 num),
+    at least 256, never shrinking until the state changes."""
+    port = port_twin(blob_dataset)
+    batches = _record_batches(monkeypatch, port, 1, valid_every=3)
+    out = port.generate_qualified_samples(1, 300)
+    assert out.shape == (300, 30) and [len(b) for b in batches] == [1024]
+    np.testing.assert_array_equal(out, batches[0][::3][:300].numpy())
+    batches.clear()
+    out = port.generate_qualified_samples(1, 500)  # 342 valid rows per batch of 1024
+    assert out.shape == (500, 30) and [len(b) for b in batches] == [1024, 1024]
+    np.testing.assert_array_equal(out, torch.cat([batches[0][::3], batches[1][::3]])[:500])
+    batches.clear()
+    port.generate_qualified_samples(1, 10)
+    assert [len(b) for b in batches] == [1024]  # never shrinks
+    port._clear_gen_caches()
+    batches.clear()
+    port.generate_qualified_samples(1, 10)
+    assert [len(b) for b in batches] == [256]
+    assert port.generate_qualified_samples(1, 0).shape == (0, 30)
+
+
+@pytest.mark.parametrize("num", [300, 3000])
+def test_qualified_falls_back_after_10_empty_batches(monkeypatch, blob_dataset, num):
+    """With CD accepting no row, the 10th empty batch's first rows are
+    taken as they are: exactly `num` rows."""
+    port = port_twin(blob_dataset)
+    batches = _record_batches(monkeypatch, port, 2, valid_every=0)
+    out = port.generate_qualified_samples(2, num)
+    cand = 1024 if num == 300 else 4096
+    assert out.shape == (num, 30) and [len(b) for b in batches] == [cand] * 10
+    np.testing.assert_array_equal(out, batches[-1][:num].numpy())
+
+
+def test_refusals(blob_dataset):
+    with pytest.raises(ValueError, match="balanced_mode"):
+        TMGGAN(device="cpu", balanced_mode=True)
+    with pytest.raises(TypeError):
+        TMGGAN(device="cpu", ema_filter=True)  # no companion classifier to filter with
+    port = port_twin(blob_dataset)
+    with pytest.raises(NotImplementedError, match="tmg_gan"):
+        port.generate_samples_fast(0, 8)
+    with pytest.raises(NotImplementedError, match="encoder"):
+        port.reconstruct_samples(blob_dataset.te_samples[:4], blob_dataset.te_labels[:4])
+
+
+# ------------------------------------------------------------ the hook
+def test_hook_writes_the_scatter(tmp_path):
+    """A 2-epoch fit is one chunk: one scatter, `tmg_2.jpg`."""
+    pytest.importorskip("matplotlib")
+    port = TMGGAN(seed=0, device="cpu", settings=_small_settings(tmp_path, epochs=2))
+    port.verbose = False
+    port.fit(_small_data())
+    assert [p.name for p in (tmp_path / "gan_outs").iterdir()] == ["tmg_2.jpg"]
+
+
+def test_hook_without_matplotlib_notes_once_and_keeps_the_stream(monkeypatch, capsys,
+                                                                 tmp_path):
+    """Without matplotlib the hook still draws its samples, from its own
+    generator, and says once that no image is written; a fit with the
+    hook equals one without it."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setattr(TMGGAN, "_said_no_plot", False)
+    fits = []
+    for hook in (True, False):
+        port = TMGGAN(seed=0, device="cpu", settings=_small_settings(tmp_path, epochs=3))
+        port.verbose, port.epoch_chunk = False, 1
+        if not hook:
+            port._on_chunk_end = lambda epochs_done: None
+        snapshots = port._snapshot_generator.get_state()
+        port.fit(_small_data())
+        drew = not torch.equal(port._snapshot_generator.get_state(), snapshots)
+        assert drew == hook
+        fits.append(port)
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if "matplotlib" in ln]
+    assert len(lines) == 1 and "not written" in lines[0]
+    assert not (tmp_path / "gan_outs").exists() or not any((tmp_path / "gan_outs").iterdir())
+    a, b = (dict(f.state.state_dict()) for f in fits)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert fits[0].loss_history == fits[1].loss_history
+
+
+# ------------------------------------------------------------ the trees
+def test_load_jax_state_accounts_for_every_leaf(blob_dataset):
+    _, state, tree = jax_twin(blob_dataset)
+    port = TMGGAN(device="cpu")
+    port.load_jax_state(tree)
+    assert (port.feature_num, port.label_num) == (30, 5)
+    _assert_state_matches(port, state)
+    counted = sum(len(net_leaves(net)) for net in [port.state["cd"], *port.state["gens"]])
+
+    def leaves(t):
+        return len(jax.tree_util.tree_leaves({k: v for k, v in t.items() if k != "opt_state"}))
+
+    assert counted == leaves(tree["cd"]) + 5 * leaves(tree["gens"])
+    missing = copy.deepcopy(tree)
+    del missing["gens"]["batch_stats"]["MLPTrunk_0"]["BatchNorm_1"]
+    with pytest.raises(ValueError, match="missing"):
+        port.load_jax_state(missing)
+    short = copy.deepcopy(tree)
+    short["gens"]["params"]["Dense_0"]["bias"] = short["gens"]["params"]["Dense_0"]["bias"][:4]
+    with pytest.raises(ValueError, match="leading axes"):
+        port.load_jax_state(short)
+
+
+# ------------------------------------------------------------ pipeline
+def test_pipeline(tmp_path):
+    """`run_balance_pipeline` of TMG-GAN for 2 epochs: every class filled to
+    the largest with exactly its need, and a fresh downstream classifier
+    (TMG-GAN has no companion to warm-start from)."""
+    settings = _small_settings(tmp_path / "data", epochs=2)
+    settings.gan.batch_size = 32
+    settings.classifier.epochs = 1
+    cls_name, display, mode = tbalance.TRAINERS["tmg_gan"]
+    assert (cls_name, display, mode) == ("TMGGAN", "TMG_GAN", "tmg")
+    ds = TabularDataset.synthetic_blobs(n_samples=400, seed=0)
+    result = tbalance.run_balance_pipeline(
+        getattr(cvaegan_tpu_torch, cls_name), display, ds, out_dir=tmp_path,
+        settings=settings, plot=False, generation_mode=mode, device="cpu")
+    counts = result["augmented"].class_counts()
+    assert (counts == counts.max()).all()
+    assert type(result["classifier"].module) is mlp.Classifier
+    assert "classifier" not in result["model"].state
+    assert all(len(v) == 2 for v in result["model"].loss_history.values())
+    assert set(result["gen_stats"]) == set(range(5))
+    assert 0.0 <= result["multiclass_metrics"]["F1"] <= 1.0
