@@ -9,7 +9,7 @@ features, 5 classes, z 128, generator 133->256->128->64->30), the
 RAIN-GAN (the same widths; four pre-LN residual-attention networks over
 singleton sequences), the long-sequence attention stack that reaches the
 block-attention kernels, the other trainers (SNGAN, CTGAN, QG-SMOTE and
-TMG-GAN at widths from `hidden_sizes`) and `SeedBank`:
+TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
 
   1. environment: torch/CUDA versions, card name and power limit; TF32 off;
   2. build: compiles every kernel source from `cvaegan_tpu_torch/csrc`, one
@@ -57,11 +57,11 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank`:
      QG-SMOTE and TMG-GAN on the same stand-in in strict mode: for each, a
      one-epoch captured fit against the eager one (rtol 1e-5, atol 1e-6;
      CTGAN's epoch holds its gradient penalty's double backward), a
-     100-epoch captured fit gated on exactly 100 replays, its chunk-end
-     hook's runs (TMG-GAN's scatter every 10 epochs: 10), finite
+     50-epoch captured fit gated on exactly 50 replays, its chunk-end
+     hook's runs (TMG-GAN's scatter every 10 epochs: 5), finite
      histories and, where there is a companion classifier, a class loss
      near ln 5 before training and at epoch 0 (RAIN-GAN: also its
-     attention history, 2 points of 1.0 per network), the replayed epoch's
+     attention history, 1 point of 1.0 per network), the replayed epoch's
      device time, steps/s and device ops (`torch.profiler`), then every
      serving entry point for all 5 classes at 8192 rows (B1's launches
      counted around them: the fast path of the CGAN, CVAE and QG-SMOTE,
@@ -69,7 +69,7 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank`:
      trainers' fast path raises and launches nothing; QG-SMOTE also from
      the prior and its latent quantiles; TMG-GAN's qualified generation
      exactly each class's need, in [-1, 1]), and for RAIN-GAN, SNGAN,
-     CTGAN, QG-SMOTE and TMG-GAN a `run_balance_pipeline` at 100 GAN and
+     CTGAN, QG-SMOTE and TMG-GAN a `run_balance_pipeline` at 50 GAN and
      20 classifier epochs whose downstream classifier is warm-started from
      the companion, where there is one (TMG-GAN has none);
   9. seed_bank: `SeedBank` of strict CVAE-GANs on stand-ins of different
@@ -80,7 +80,19 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank`:
      steps/s, device time by CUDA events and device ops by
      `torch.profiler` (gated: fewer than twice a serial epoch's at
      K = 16), then one `generate_samples_fast` on a replica (one B1
-     launch). B1, B2 and B3 launch 0 times on every training path.
+     launch);
+ 10. seed_bank_family: `SeedBank` of RAIN-GAN, SNGAN, CTGAN, QG-SMOTE and
+     TMG-GAN in strict mode: for each, a bank of K = 2 on the stand-ins of
+     the first and last class mixes from drawn Adam moments, its captured
+     epoch against the eager one (one replay per epoch) and each replica
+     against its serial fit after one epoch (rtol 1e-3, atol 1e-4: in
+     float64, and in float32 where the serial fit resolves it); at
+     K = 16 the replayed banked epoch's device time by CUDA events,
+     aggregate steps/s and device ops by `torch.profiler`, gated below
+     twice the trainer's serial replayed epoch's (`family`); and one
+     `generate_samples_fast` on a QG-SMOTE replica (one B1 launch, held to
+     the generator run in float64). B1, B2 and B3 launch 0 times on every
+     training path.
 
 Each phase prints one JSON line; then the `kernels` line, the card's name
 and power limit as `nvidia-smi` gives them, and as the last line
@@ -163,7 +175,13 @@ FAST_PATH = ("CGAN", "CVAE", "QG_SMOTE")
 FAMILY_PIPELINES = ("RAIN_GAN", "SNGAN", "CTGAN", "QG_SMOTE", "TMGGAN")
 # Trainers whose generators end in tanh (samples in [-1, 1], not [0, 1]).
 TANH_OUTPUT = ("ctgan", "tmg_gan")
-FAMILY_EPOCHS, FAMILY_CLF_EPOCHS = 100, 20
+# Cut from 100 GAN epochs to 50 (fits and pipelines) to keep the script's
+# time with `seed_bank_family`; widths are uncut.
+FAMILY_EPOCHS, FAMILY_CLF_EPOCHS = 50, 20
+# Replays per CUDA-event round of the `family` and `seed_bank` epochs (10
+# until `seed_bank_family` joined; each round still times back-to-back
+# replays behind one spin kernel).
+TIMING_ITERS = 5
 # RAIN-GAN's attention history: one point per 50-epoch chunk, each the
 # mean of softmax probabilities over a single key.
 ATTENTION_TOL = 1e-6
@@ -180,6 +198,16 @@ BANK_MIXES = ((500, 200, 150, 100, 50), (300, 300, 200, 100, 100),
 BANK_RTOL, BANK_ATOL = 1e-3, 1e-4
 BANK_KS = (1, 4, 16)
 BANK_TIMING_EPOCHS = 10
+# SeedBank of the other five trainers (`seed_bank_family`), in strict mode:
+# K = 2 on the stand-ins of BANK_MIXES[0] and BANK_MIXES[3] (the second
+# lacks class 2) for the checks, K = 16 on the timing stand-ins for the
+# rates; 3 replays per timing round (a banked RAIN-GAN epoch takes ~0.3
+# s), and the serial fits the replicas are held to run eagerly (the
+# `family` phase holds a captured serial epoch to the eager one).
+BANK_FAMILY = ("RAIN_GAN", "SNGAN", "CTGAN", "QG_SMOTE", "TMGGAN")
+BANK_FAMILY_MIXES = (0, 3)
+BANK_FAMILY_K = 16
+BANK_FAMILY_TIMING_EPOCHS = 2
 JAX_STRICT_RECON_LAST50 = (0.16611650466918945, 0.1633944422006607,
                            0.16289449065923692, 0.16205778270959853,
                            0.1620414972305298)
@@ -716,6 +744,25 @@ def family_pipeline(torch, tp, tconfig, name, ds):
             "pipeline_seconds": result["seconds"]}
 
 
+def fast_vs_float64(torch, model, label):
+    """`generate_samples_fast(label, SERVE_ROWS)` of a trainer whose
+    generator is the MLP family's, held to the generator module run in
+    float64 on the same z. Returns the error report."""
+    from cvaegan_tpu_torch.core.state import apply_eval
+
+    rng_state = model.generator.get_state()
+    fast = model.generate_samples_fast(label, SERVE_ROWS)
+    check_samples(fast, SERVE_ROWS, f"{model.name}.generate_samples_fast")
+    model.generator.set_state(rng_state)
+    z = model._prior(SERVE_ROWS)
+    gen64 = copy.deepcopy(model.state["generator"]).double()
+    exact, _ = apply_eval(gen64, z.double(), model._labels(label, SERVE_ROWS))
+    err, ratio = close_enough(torch.as_tensor(fast, device=z.device).double(), exact)
+    check(ratio <= 1.0, f"{model.name}: generate_samples_fast disagrees with "
+          f"the generator in float64 ({ratio})")
+    return {"max_abs_err": err, "err_over_tol": ratio}
+
+
 def serve_family(torch, model, ds, fused_mlp):
     """Every serving entry point of a fitted trainer of the family, for
     every class at SERVE_ROWS rows; for those of FAST_PATH the fused
@@ -725,7 +772,6 @@ def serve_family(torch, model, ds, fused_mlp):
     qualified generation must give exactly each class's need. Returns a
     report."""
     from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
-    from cvaegan_tpu_torch.core.state import apply_eval
 
     report = {}
     low = -1.0 if model.name in TANH_OUTPUT else 0.0
@@ -736,19 +782,11 @@ def serve_family(torch, model, ds, fused_mlp):
                           f"{model.name}.generate_samples", low)
             if not fast_path:
                 continue
-            rng_state = model.generator.get_state()
-            fast = model.generate_samples_fast(c, SERVE_ROWS)
-            check_samples(fast, SERVE_ROWS, f"{model.name}.generate_samples_fast")
             if c == 0:
-                model.generator.set_state(rng_state)
-                z = model._prior(SERVE_ROWS)
-                labels = model._labels(0, SERVE_ROWS)
-                gen64 = copy.deepcopy(model.state["generator"]).double()
-                exact, _ = apply_eval(gen64, z.double(), labels)
-                err, ratio = close_enough(torch.as_tensor(fast, device=z.device).double(), exact)
-                report["fast_vs_module_f64"] = {"max_abs_err": err, "err_over_tol": ratio}
-                check(ratio <= 1.0, f"{model.name}: generate_samples_fast disagrees with "
-                      f"the generator in float64 ({ratio})")
+                report["fast_vs_module_f64"] = fast_vs_float64(torch, model, 0)
+            else:
+                check_samples(model.generate_samples_fast(c, SERVE_ROWS), SERVE_ROWS,
+                              f"{model.name}.generate_samples_fast")
     else:
         check_samples(model.generate_samples(SERVE_ROWS), SERVE_ROWS,
                       f"{model.name}.generate_samples")
@@ -889,9 +927,10 @@ def family_phase(torch, tp, tconfig, ds, fused_mlp, ba, counter):
             model._epoch_t.fill_(FAMILY_EPOCHS)
             graph.replay()
 
-        (device_ms,), rounds = cuda_ms(torch, [replay], iters=10, reps=4, warmup=2)
-        (host_rate,) = samples_per_s(torch, [replay], 1, iters=10, reps=4)
-        prof = breakdown(torch, replay, 1e3 / host_rate, calls=2, top=4)
+        (device_ms,), rounds = cuda_ms(torch, [replay], iters=TIMING_ITERS, reps=4,
+                                       warmup=2)
+        (host_rate,) = samples_per_s(torch, [replay], 1, iters=TIMING_ITERS, reps=4)
+        prof = breakdown(torch, replay, 1e3 / host_rate, calls=1, top=4)
         torch.cuda.synchronize()
         for i, n in enumerate((fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES)):
             train_launches[i] += n
@@ -957,6 +996,73 @@ def bank_replay(bank, epoch):
     return replay
 
 
+def fit_bank(torch, tconfig, cls, dss, epochs, eager=False, drawn=False):
+    """A strict `SeedBank` of `cls` (seeds 0, 1, ...) fitted for `epochs`
+    epochs on `dss`, captured unless `eager`, from drawn Adam moments if
+    `drawn`."""
+    from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
+
+    bank = SeedBank(cls, list(range(len(dss))), settings=train_settings(tconfig, epochs),
+                    device="cuda")
+    for t, ds in zip(bank.trainers, dss):
+        t.verbose = False
+        if drawn:
+            t._prepare(ds)
+            draw_moments(torch, t, t.seed)
+    bank.fit(list(dss), eager=eager)
+    torch.cuda.synchronize()
+    return bank
+
+
+def bank_graph_vs_eager(torch, counter, fit, what):
+    """One-epoch banks from `fit(eager)`, captured and eager: one replay
+    and one epoch call against none and one, and every replica's history
+    and tensors at TRAIN_RTOL, TRAIN_ATOL. Returns (the captured bank, the
+    comparison)."""
+    counter.reset()
+    captured = fit(False)
+    captured_calls = (counter.replays, counter.epochs)
+    counter.reset()
+    eager = fit(True)
+    eager_calls = (counter.replays, counter.epochs)
+    check(captured_calls == (1, 1) and eager_calls == (0, 1),
+          f"{what}: (replays, epoch calls) captured {captured_calls}, eager {eager_calls}")
+    worst, err, bitwise = 0.0, 0.0, True
+    for a, b in zip(captured.trainers, eager.trainers):
+        e, r, bw = compare_fits(torch, a, b)
+        err, worst, bitwise = max(err, e), max(worst, r), bitwise and bw
+    check(worst <= 1.0, f"{what}: captured and eager banked epochs disagree ({worst})")
+    return captured, {"max_abs_diff": err, "worst_err_over_tol": worst, "bitwise": bitwise}
+
+
+def timed_bank(torch, counter, fit, epochs, what, iters, reps, calls, top):
+    """A bank from `fit()` of `epochs` epochs (one replay each, finite
+    histories), then its replayed epoch's device time by CUDA events,
+    host rate, aggregate steps/s and `torch.profiler` breakdown. Returns
+    (the bank, the report)."""
+    counter.reset()
+    bank = fit()
+    check((counter.replays, counter.epochs) == (epochs, 1),
+          f"{what}: {counter.replays} replays, {counter.epochs} epoch calls")
+    for t in bank.trainers:
+        hist = np.asarray([t.loss_history[key] for key in t.loss_keys])
+        check(hist.shape == (len(t.loss_keys), epochs) and np.isfinite(hist).all(),
+              f"{what}: history {hist.shape}")
+    replay = bank_replay(bank, epochs)
+    (device_ms,), rounds = cuda_ms(torch, [replay], iters=iters, reps=reps, warmup=2)
+    (host_rate,) = samples_per_s(torch, [replay], 1, iters=iters, reps=reps)
+    steps = sum(t._steps_per_epoch() for t in bank.trainers)
+    return bank, {"replay_device_ms_per_epoch": device_ms,
+                  "replay_device_ms_rounds": rounds[0],
+                  "replay_epochs_per_s": host_rate,
+                  "steps_per_epoch_all_replicas": steps,
+                  "aggregate_steps_per_s": host_rate * steps,
+                  "fit_seconds_with_capture": bank.fit_seconds,
+                  "fit_steps_per_s_with_capture": bank.steps_per_sec,
+                  "breakdown": breakdown(torch, replay, 1e3 / host_rate, calls=calls,
+                                         top=top)}
+
+
 def bank_phase(torch, tp, tconfig, make_ds, fused_mlp, ba, counter, serial_ops):
     """The `seed_bank` phase: strict CVAE-GAN banks on stand-ins made by
     `make_ds(counts, seed)`: a captured banked epoch against the eager one
@@ -964,36 +1070,14 @@ def bank_phase(torch, tp, tconfig, make_ds, fused_mlp, ba, counter, serial_ops):
     the rate, device time and device ops of a replayed banked epoch for
     each K of BANK_KS, and a replica's fast path. Returns (report,
     training launches (fused, B2, B3), fast-path launches of B1)."""
-    from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
-
     def bank_fit(dss, epochs, eager=False, drawn=False):
-        bank = SeedBank(tp.CVAEGAN, list(range(len(dss))),
-                        settings=train_settings(tconfig, epochs), device="cuda")
-        for t, ds in zip(bank.trainers, dss):
-            t.verbose = False
-            if drawn:
-                t._prepare(ds)
-                draw_moments(torch, t, t.seed)
-        bank.fit(list(dss), eager=eager)
-        torch.cuda.synchronize()
-        return bank
+        return fit_bank(torch, tconfig, tp.CVAEGAN, dss, epochs, eager, drawn)
 
     mixes = [make_ds(counts, seed) for seed, counts in enumerate(BANK_MIXES)]
     timing_sets = [make_ds(BANK_MIXES[i % 3], 100 + i) for i in range(max(BANK_KS))]
     zero_counts(fused_mlp, ba)
-    counter.reset()
-    captured = bank_fit(mixes, 1)
-    captured_calls = (counter.replays, counter.epochs)
-    counter.reset()
-    eager = bank_fit(mixes, 1, eager=True)
-    eager_calls = (counter.replays, counter.epochs)
-    check(captured_calls == (1, 1) and eager_calls == (0, 1),
-          f"bank: (replays, epoch calls) captured {captured_calls}, eager {eager_calls}")
-    worst, err, bitwise = 0.0, 0.0, True
-    for a, b in zip(captured.trainers, eager.trainers):
-        e, r, bw = compare_fits(torch, a, b)
-        err, worst, bitwise = max(err, e), max(worst, r), bitwise and bw
-    check(worst <= 1.0, f"bank: captured and eager banked epochs disagree ({worst})")
+    _, graph_vs_eager = bank_graph_vs_eager(
+        torch, counter, lambda eager: bank_fit(mixes, 1, eager), "bank")
 
     vs_serial = []
     drawn = bank_fit(mixes, 1, drawn=True)
@@ -1015,28 +1099,9 @@ def bank_phase(torch, tp, tconfig, make_ds, fused_mlp, ba, counter, serial_ops):
 
     timing = {}
     for k in BANK_KS:
-        counter.reset()
-        bank = bank_fit(timing_sets[:k], BANK_TIMING_EPOCHS)
-        check((counter.replays, counter.epochs) == (BANK_TIMING_EPOCHS, 1),
-              f"bank K={k}: {counter.replays} replays, {counter.epochs} epoch calls")
-        for t in bank.trainers:
-            hist = np.asarray([t.loss_history[key] for key in t.loss_keys])
-            check(hist.shape == (len(t.loss_keys), BANK_TIMING_EPOCHS)
-                  and np.isfinite(hist).all(), f"bank K={k}: history {hist.shape}")
-        replay = bank_replay(bank, BANK_TIMING_EPOCHS)
-        (device_ms,), rounds = cuda_ms(torch, [replay], iters=10, reps=4, warmup=2)
-        (host_rate,) = samples_per_s(torch, [replay], 1, iters=10, reps=4)
-        steps = sum(t._steps_per_epoch() for t in bank.trainers)
-        prof = breakdown(torch, replay, 1e3 / host_rate, calls=2, top=6)
-        timing[k] = {"replay_device_ms_per_epoch": device_ms,
-                     "replay_device_ms_rounds": rounds[0],
-                     "replay_epochs_per_s": host_rate,
-                     "steps_per_epoch_all_replicas": steps,
-                     "aggregate_steps_per_s": host_rate * steps,
-                     "fit_seconds_with_capture": bank.fit_seconds,
-                     "fit_steps_per_s_with_capture": bank.steps_per_sec,
-                     "breakdown": prof}
-        last = bank
+        last, timing[k] = timed_bank(
+            torch, counter, lambda k=k: bank_fit(timing_sets[:k], BANK_TIMING_EPOCHS),
+            BANK_TIMING_EPOCHS, f"bank K={k}", iters=TIMING_ITERS, reps=4, calls=2, top=6)
     ops16 = timing[BANK_KS[-1]]["breakdown"].get("device_ops_per_call")
     check(ops16 is not None and serial_ops is not None and ops16 < 2 * serial_ops,
           f"bank K={BANK_KS[-1]}: {ops16} device ops per epoch against "
@@ -1053,13 +1118,168 @@ def bank_phase(torch, tp, tconfig, make_ds, fused_mlp, ba, counter, serial_ops):
     check_samples(fast, SERVE_ROWS, "bank replica generate_samples_fast")
     report = {"replicas": len(mixes), "class_counts": [
                   np.bincount(ds.tr_labels, minlength=CLASSES).tolist() for ds in mixes],
-              "graph_vs_eager_epoch1": {"max_abs_diff": err, "worst_err_over_tol": worst,
-                                        "bitwise": bitwise},
+              "graph_vs_eager_epoch1": graph_vs_eager,
               "replica_vs_serial_epoch1": vs_serial,
               "rtol": BANK_RTOL, "atol": BANK_ATOL,
               "serial_epoch_device_ops": serial_ops, "timing_by_k": timing,
               "replica_fast_launches": launches}
     return report, train_launches, launches["total"]
+
+
+def float64_epoch0(torch, trainer):
+    """Epoch 0 of a trainer (serial or banked: a SeedBank's `_load()`)
+    run eagerly in float64: its networks, Adam moments, data and draws
+    (the same values, widened) in float64 and the losses' float32 cast
+    removed for the call. Returns its losses, `[keys]` or `[keys, K]`."""
+    from cvaegan_tpu_torch.core import losses
+
+    trainer.state.double()
+    for opt in trainer.optimizers.values():
+        opt.m, opt.v = [m.double() for m in opt.m], [v.double() for v in opt.v]
+    trainer._data = {k: v.double() if isinstance(v, torch.Tensor) and v.is_floating_point()
+                     else v for k, v in trainer._data.items()}
+    for draw in ("_normal", "_uniform"):
+        setattr(trainer, draw, lambda shape, draw=getattr(trainer, draw): draw(shape).double())
+    f32, losses._f32 = losses._f32, lambda *xs: xs[0] if len(xs) == 1 else xs
+    try:
+        trainer._epoch_t.fill_(0)
+        trainer._epoch()
+    finally:
+        losses._f32 = f32
+    return trainer._losses_out.double()
+
+
+def replicas_vs_serial(torch, cls, tconfig, bank, mixes):
+    """Each replica of a fitted 1-epoch bank (from drawn moments) against
+    its serial fit from the same moments, at BANK_RTOL, BANK_ATOL on epoch
+    0's losses, twice: in float64 (the bank's and the serial trainer's
+    epoch 0 run eagerly in float64: the same function, gated for every
+    replica), and in float32 (the fits). The float32 comparison is gated
+    where the serial fit can resolve the tolerance: where its own float32
+    epoch 0 lies beyond the tolerance from its float64 one, or moves by the
+    tolerance when every parameter is nudged one ulp up (`torch.nextafter`),
+    it is reported and not gated."""
+    from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
+
+    def serial(seed, ds, nudge=False):
+        t = cls(seed=seed, device="cuda", settings=train_settings(tconfig, 1))
+        t.verbose = False
+        t._prepare(ds)
+        draw_moments(torch, t, seed)
+        if nudge:
+            with torch.no_grad():
+                for p in t.state.parameters():
+                    p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+        return t
+
+    def first_epoch(t, ds):
+        t.fit(ds, eager=True)
+        return np.array([t.loss_history[k][0] for k in t.loss_keys])
+
+    def over(a, b):
+        return close_enough(torch.as_tensor(np.asarray(a), dtype=torch.float64),
+                            torch.as_tensor(np.asarray(b), dtype=torch.float64),
+                            BANK_RTOL, BANK_ATOL)
+
+    fresh = SeedBank(cls, list(range(len(mixes))), settings=train_settings(tconfig, 1),
+                     device="cuda")
+    for f, ds in zip(fresh.trainers, mixes):
+        f._prepare(ds)
+        draw_moments(torch, f, f.seed)
+    exact = float64_epoch0(torch, fresh._load()).cpu().numpy()
+    out = []
+    for seed, (t, ds) in enumerate(zip(bank.trainers, mixes)):
+        got = np.array([t.loss_history[k][0] for k in t.loss_keys])
+        ref = serial(seed, ds)
+        want = first_epoch(ref, ds)
+        serial64 = float64_epoch0(torch, serial(seed, ds)).cpu().numpy()
+        e, r = over(got, want)
+        report = {"epoch0_max_abs_diff": e, "epoch0_err_over_tol": r,
+                  "float64_err_over_tol": over(exact[:, seed], serial64)[1],
+                  "bank_f32_vs_f64_err_over_tol": over(got, serial64)[1],
+                  "serial_f32_vs_f64_err_over_tol": over(want, serial64)[1],
+                  "state_max_abs_diff_ungated": max(
+                      float((x - y).abs().max()) for x, y in
+                      zip(state_tensors(t)[:-1], state_tensors(ref)[:-1])),
+                  "classes": [int(c) for c in t._data["index"].present()],
+                  "float32_gated": True}
+        if r > 1.0:
+            moved = over(first_epoch(serial(seed, ds, nudge=True), ds), want)[1]
+            report["serial_err_over_tol_one_ulp_up"] = moved
+            report["float32_gated"] = (report["serial_f32_vs_f64_err_over_tol"] <= 1.0
+                                       and moved < 1.0)
+        report["passed"] = (report["float64_err_over_tol"] <= 1.0
+                            and (r <= 1.0 or not report["float32_gated"]))
+        out.append(report)
+    return out
+
+
+def bank_family_phase(torch, tp, tconfig, make_ds, fused_mlp, ba, counter, family):
+    """The `seed_bank_family` phase: for each trainer of BANK_FAMILY, a
+    strict bank of K = 2 on the stand-ins of the BANK_FAMILY_MIXES, from
+    drawn Adam moments: its captured epoch against the eager one (one
+    replay per epoch), and each replica against its serial fit after one
+    epoch (`replicas_vs_serial`); then at K = BANK_FAMILY_K a replayed
+    banked epoch's device time by CUDA events, aggregate steps/s and
+    device ops by `torch.profiler`, gated below twice the trainer's serial
+    replayed epoch's (profiled by the `family` phase, whose report is
+    `family`); and a QG-SMOTE
+    replica's fast path (one B1 launch), held to its generator run in
+    float64. Returns (report, training launches (fused, B2, B3), fast-path
+    launches of B1)."""
+    mixes = [make_ds(BANK_MIXES[i], i) for i in BANK_FAMILY_MIXES]
+    timing_sets = [make_ds(BANK_MIXES[i % 3], 100 + i) for i in range(BANK_FAMILY_K)]
+    report, train_launches, fast_launches = {}, [0, 0, 0], 0
+    for name in BANK_FAMILY:
+        started = time.perf_counter()
+        cls = getattr(tp, name)
+
+        def bank_fit(dss, epochs, eager=False, cls=cls):
+            return fit_bank(torch, tconfig, cls, dss, epochs, eager, drawn=True)
+
+        zero_counts(fused_mlp, ba)
+        captured, graph_vs_eager = bank_graph_vs_eager(
+            torch, counter, lambda eager: bank_fit(mixes, 1, eager), f"{name} bank")
+
+        vs_serial = replicas_vs_serial(torch, cls, tconfig, captured, mixes)
+        for seed, v in enumerate(vs_serial):
+            check(v["passed"], f"{name} bank replica {seed}: epoch 0 differs from its "
+                  f"serial fit: {v}")
+
+        bank, timing = timed_bank(
+            torch, counter, lambda: bank_fit(timing_sets, BANK_FAMILY_TIMING_EPOCHS),
+            BANK_FAMILY_TIMING_EPOCHS, f"{name} bank K={BANK_FAMILY_K}",
+            iters=3, reps=3, calls=1, top=4)
+        serial_ops = family[name]["replay_breakdown"].get("device_ops_per_call")
+        ops = timing["breakdown"].get("device_ops_per_call")
+        check(ops is not None and serial_ops is not None and ops < 2 * serial_ops,
+              f"{name} bank K={BANK_FAMILY_K}: {ops} device ops per epoch against "
+              f"{serial_ops} of a serial epoch")
+        torch.cuda.synchronize()
+        for i, n in enumerate((fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES)):
+            train_launches[i] += n
+        fast = None
+        if name == "QG_SMOTE":
+            zero_counts(fused_mlp, ba)
+            fast = fast_vs_float64(torch, bank.trainers[3], 0)
+            torch.cuda.synchronize()
+            fast["launches"] = fused_counts(fused_mlp)
+            check(fast["launches"] == {"tensor_core": 1, "simt": 0, "total": 1}
+                  and (ba.LAUNCHES, ba.ENTROPY_LAUNCHES) == (0, 0),
+                  f"{name} bank replica generate_samples_fast: launches {fast['launches']}")
+            fast_launches += fast["launches"]["total"]
+        report[name] = {
+            "graph_vs_eager_epoch1": graph_vs_eager,
+            "replica_vs_serial_epoch1": vs_serial,
+            "k": BANK_FAMILY_K, "timing_epochs": BANK_FAMILY_TIMING_EPOCHS, **timing,
+            "device_ops_per_epoch": ops, "serial_epoch_device_ops": serial_ops,
+            "ops_over_serial": ops / serial_ops,
+            **({"replica_fast_vs_module_f64": fast} if fast is not None else {}),
+            "wall_seconds": time.perf_counter() - started}
+    return {"replicas_checked": len(mixes), "class_counts": [
+                np.bincount(ds.tr_labels, minlength=CLASSES).tolist() for ds in mixes],
+            "rtol": BANK_RTOL, "atol": BANK_ATOL, "trainers": report}, \
+        train_launches, fast_launches
 
 
 def main() -> int:
@@ -1493,14 +1713,26 @@ def main() -> int:
         torch, tp, tconfig,
         lambda counts, seed: standin_dataset(TabularDataset, minmax_scale, counts, seed),
         fused_mlp, ba, counter, serial_break.get("device_ops_per_call"))
-    counter.restore()
     emit({"phase": "seed_bank", "card": card, "trainer": "cvae_gan", "mode": "strict",
           **bank, "training_launches_fused_b2_b3": bank_train})
-    check(family_train == [0, 0, 0] and bank_train == [0, 0, 0],
+
+    # 10. SeedBank of the other five trainers -------------------------------
+    t0 = time.perf_counter()
+    bank_family, bank_family_train, bank_family_fast = bank_family_phase(
+        torch, tp, tconfig,
+        lambda counts, seed: standin_dataset(TabularDataset, minmax_scale, counts, seed),
+        fused_mlp, ba, counter, family)
+    counter.restore()
+    emit({"phase": "seed_bank_family", "card": card, "mode": "strict", **bank_family,
+          "training_launches_fused_b2_b3": bank_family_train,
+          "replica_fast_launches": bank_family_fast,
+          "wall_seconds": time.perf_counter() - t0})
+    check(family_train == [0, 0, 0] and bank_train == [0, 0, 0]
+          and bank_family_train == [0, 0, 0],
           f"kernels launched on the family or bank training paths (fused, B2, B3): "
-          f"{family_train}, {bank_train}")
-    training_launches = tuple(a + b + c for a, b, c in
-                              zip(training_launches, family_train, bank_train))
+          f"{family_train}, {bank_train}, {bank_family_train}")
+    training_launches = tuple(sum(n) for n in zip(training_launches, family_train,
+                                                  bank_train, bank_family_train))
 
     def attention_entry(name, replaces, launches_, entropy, library):
         t1, t2 = attn_timing["t1"], attn_timing["t2"]
@@ -1531,10 +1763,11 @@ def main() -> int:
         {"name": "fused_mlp4", "route": "cuda",
          "source": "cvaegan_tpu_torch/csrc/fused_mlp4.cu",
          "replaces": "cvaegan_tpu/kernels/fused_mlp.py:44",
-         "launches": launches["total"] + family_fast + bank_fast,
+         "launches": launches["total"] + family_fast + bank_fast + bank_family_fast,
          "launches_by_path": {"cvae_gan": launches["total"],
                               "family_fast_paths": family_fast,
-                              "seed_bank_replica": bank_fast},
+                              "seed_bank_replica": bank_fast,
+                              "seed_bank_family_qg_smote_replica": bank_family_fast},
          "launches_by_variant": launches,
          "training_launches": training_launches[0],
          "max_abs_err": mlp_stats["tensor_core"]["max_abs_err"],

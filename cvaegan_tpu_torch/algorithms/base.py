@@ -27,8 +27,9 @@ The steps are written once for a trainer and for a seed bank of K of them
 (`algorithms/seed_bank.py`): batches are concatenated and split on the
 batch axis counted from the end, the losses keep leading axes, and every
 random input comes from the draw methods (`_sample_batch`,
-`_sample_labels`, `_random_batch`, `_prior`, `_labels`) and the class
-rounds from `_rounds`, which the bank replaces by per-replica versions.
+`_sample_labels`, `_random_batch`, `_uniform`, `_normal` and so `_prior`,
+`_labels`) and the class rounds from `_rounds`, which the bank replaces
+by per-replica versions.
 """
 
 from __future__ import annotations
@@ -99,9 +100,6 @@ class GenerativeTrainer:
     conditional_sampling: bool = True
     #: the network that maps z (and labels) to samples
     decoder_name: str = "generator"
-    #: whether `models/banked.py` has banked forms of the trainer's
-    #: networks, so that `SeedBank` can train it
-    bankable: bool = True
 
     def __init__(self, seed: Optional[int] = None,
                  settings: Optional[config_lib.Settings] = None,
@@ -398,9 +396,16 @@ class GenerativeTrainer:
         return torch.full((num,), int(target_label), dtype=torch.int64,
                           device=self.device)
 
+    def _uniform(self, shape) -> torch.Tensor:
+        """float32 draws uniform on [0, 1) of `shape`."""
+        return torch.rand(shape, generator=self.generator, device=self.device)
+
+    def _normal(self, shape) -> torch.Tensor:
+        """float32 standard normal draws of `shape`."""
+        return torch.randn(shape, generator=self.generator, device=self.device)
+
     def _prior(self, num: int) -> torch.Tensor:
-        return torch.randn((num, self.gan_cfg.z_size), generator=self.generator,
-                           device=self.device)
+        return self._normal((num, self.gan_cfg.z_size))
 
     # ------------------------------------------------------------------ fit
     def fit(self, dataset, eager: bool = False) -> None:

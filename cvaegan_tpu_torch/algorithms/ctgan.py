@@ -46,8 +46,6 @@ class CTGAN(GenerativeTrainer):
     loops = ("d", "c", "g")
     #: the reference hard-codes 5 critic steps (`src/ctgan.py:93`)
     d_loop_fixed = 5
-    #: `models/banked.py` has no banked CTGAN networks (ROADMAP A24)
-    bankable = False
     _jax_dims = staticmethod(convert.ctgan_dims)
 
     def _build(self, init_generator: torch.Generator) -> Dict[str, nn.Module]:
@@ -92,7 +90,7 @@ class CTGAN(GenerativeTrainer):
                 score_sum = dis(x_hat, y, gp_mask, self.generator).sum()
             (grads,) = torch.autograd.grad(score_sum, x_hat, create_graph=True)
             norms = torch.sqrt(torch.sum(torch.square(grads), dim=-1) + 1e-12)
-            gp = torch.mean(torch.square(norms - 1.0)) * lam_gp
+            gp = torch.mean(torch.square(norms - 1.0), dim=-1) * lam_gp
             return losses.wasserstein_d_loss(d_real, d_fake) + gp, gp
 
         loss, gp = grad_update(self.optimizers["discriminator"], loss_fn)
@@ -138,7 +136,7 @@ class CTGAN(GenerativeTrainer):
         lam = self._lambda_class(epoch)
         for _ in range(counts["d"]):
             x_real, y = self._sample_batch(class_id)
-            alpha = torch.rand((bs, 1), generator=self.generator, device=self.device)
+            alpha = self._uniform((bs, 1))
             d_out = self._d_step(x_real, y, self._prior(bs), self._mask(bs),
                                  self._mask(2 * bs), self._mask(bs), alpha)
         for _ in range(counts["c"]):

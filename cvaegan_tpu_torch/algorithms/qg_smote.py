@@ -61,8 +61,6 @@ class QG_SMOTE(GenerativeTrainer):
     loss_keys = ("recon_loss", "quantile_loss", "adv_loss", "class_loss")
     #: D, C, the quantile regressor (q), then E+G
     loops = ("d", "c", "q", "g")
-    #: `models/banked.py` has no banked quantile networks (ROADMAP A24)
-    bankable = False
     _jax_dims = staticmethod(convert.qg_smote_dims)
 
     def __init__(self, *args, **kwargs):
@@ -93,7 +91,7 @@ class QG_SMOTE(GenerativeTrainer):
 
     def _alpha(self, rows: int) -> torch.Tensor:
         """Interpolation points `[rows, 1]`, uniform in [0, 1)."""
-        return torch.rand((rows, 1), generator=self.generator, device=self.device)
+        return self._uniform((rows, 1))
 
     # ------------------------------------------------------------- steps
     def _quantile_z(self, x_real, y, alpha) -> torch.Tensor:

@@ -59,8 +59,6 @@ class RAIN_GAN(GenerativeTrainer):
     #: the reference records the attention history every 50 epochs (10
     #: points per 500-epoch fit); the hook runs at each chunk's end
     epoch_chunk = 50
-    #: `models/banked.py` has no banked attention networks (ROADMAP A24)
-    bankable = False
     _jax_dims = staticmethod(convert.rain_gan_dims)
 
     def _build(self, init_generator: torch.Generator) -> Dict[str, nn.Module]:

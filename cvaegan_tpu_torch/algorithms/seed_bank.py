@@ -7,7 +7,8 @@ replicas of one trainer class (one per seed) with each kernel run once
 for all of them: the replicas' networks are stacked into banked networks
 whose tensors carry a leading replica axis (`models/banked.py`), and the
 trainer's own epoch (`_epoch_body`, its D, C and G steps) runs on
-`[K, batch, features]` operands, each matmul one batched matmul over K.
+`[K, batch, features]` operands (`[K, batch, seq, features]` inside
+RAIN-GAN's attention stacks), each matmul one batched matmul over K.
 The JAX package gets the same by `vmap`ping the epoch. On CUDA the whole
 banked epoch is captured as one CUDA graph and replayed once per epoch,
 as a trainer's `fit` does.
@@ -15,9 +16,10 @@ as a trainer's `fit` does.
 What each replica sees is its serial fit's:
   * random draws: each replica keeps its trainer's own `torch.Generator`,
     seeded as its serial trainer, and draws every input (batch indices,
-    z, eps, dropout masks) in the same order and at the same shapes as a
-    serial `fit`, into its slice of a `[K, ...]` buffer; all K
-    generators are registered with the graph;
+    z, eps, dropout masks, CTGAN's column masks and interpolation alpha,
+    QG-SMOTE's quantile alpha, TMG-GAN's diversity z) in the same order
+    and at the same shapes as a serial `fit`, into its slice of a `[K,
+    ...]` buffer; all K generators are registered with the graph;
   * losses: each replica's loss is the mean over its own batch; the
     backward pass takes their sum, so each replica's parameters get the
     gradient of their own loss alone; Adam is per replica, with a step
@@ -28,12 +30,14 @@ What each replica sees is its serial fit's:
   * absent classes in strict mode: a class round runs when any replica
     has the class; a replica that lacks it keeps its whole state through
     the round (parameters, BatchNorm statistics, spectral u/v, Adam
-    moments and count) and draws nothing, and its history records its
+    moments and count: TMG-GAN's replica keeps the class's generator and
+    its Adam) and draws nothing, and its history records its
     last present round's losses, as JAX's `_guard_class_round` does.
 
 After `fit`, `trainers[k]` is a full trainer of `seeds[k]` with the whole
-per-trainer API. Epoch-cadenced host hooks (`_on_chunk_end`) are skipped
-in bank mode, as in the JAX package. Sharding the replica axis over
+per-trainer API. Epoch-cadenced host hooks (`_on_chunk_end`: RAIN-GAN's
+attention history, TMG-GAN's scatters) are skipped in bank mode, as in
+the JAX package. Sharding the replica axis over
 devices (`mesh=`) is not ported (ROADMAP A21).
 
     bank = SeedBank(CVAEGAN, seeds=range(16), balanced_mode=True)
@@ -72,8 +76,11 @@ class _Banked:
         work."""
 
     # ------------------------------------------------------------ draws
-    def _prior(self, num: int) -> torch.Tensor:
-        return self.generator.randn((num, self.gan_cfg.z_size))
+    def _uniform(self, shape) -> torch.Tensor:
+        return self.generator.rand(shape)
+
+    def _normal(self, shape) -> torch.Tensor:
+        return self.generator.randn(shape)
 
     def _labels(self, target_label: int, num: int) -> torch.Tensor:
         return torch.full((self._k, num), int(target_label), dtype=torch.int64,
@@ -153,12 +160,11 @@ def _banked_class(cls):
 class SeedBank:
     """Train K same-architecture replicas (one per seed) concurrently.
 
-    `cls` is one of the port's MLP trainers (`CVAEGAN`, `CGAN`, `CVAE`,
-    `GAN`, `VAE`, `VAEGAN`); the other parameters are the trainer's. The
-    JAX package banks all 11 trainers; the port has no banked forms of
-    RAIN-GAN's, SNGAN's or CTGAN's networks yet (ROADMAP A24) and refuses
-    them here. After `fit`, `self.trainers[k]` is a fully trained,
-    independently usable trainer for `seeds[k]`."""
+    `cls` is any of the port's 11 trainers, as in the JAX package; the
+    other parameters are the trainer's (`ema_filter` where the trainer
+    takes it; TMG-GAN refuses `balanced_mode`, as its trainer does).
+    After `fit`, `self.trainers[k]` is a fully trained, independently
+    usable trainer for `seeds[k]`."""
 
     def __init__(self, cls, seeds: Sequence[int],
                  settings: Optional[config_lib.Settings] = None,
@@ -170,21 +176,13 @@ class SeedBank:
             raise NotImplementedError(
                 "SeedBank(mesh=...): sharding the replica axis over devices is "
                 "not ported yet (ROADMAP A21)")
-        if not cls.bankable:
-            raise NotImplementedError(
-                f"SeedBank({cls.__name__}): the port has no banked forms of its "
-                "networks yet (ROADMAP A24); fit each seed serially")
         self.seeds = list(seeds)
         self.settings = settings or config_lib.settings
-        try:
-            self.trainers = [cls(seed=s, settings=self.settings, device=device,
-                                 balanced_mode=balanced_mode, ema_filter=ema_filter)
-                             for s in self.seeds]
-        except (TypeError, ValueError):
-            if balanced_mode or ema_filter:
-                raise
-            self.trainers = [cls(seed=s, settings=self.settings, device=device)
-                             for s in self.seeds]
+        # `ema_filter` only where asked for: TMG-GAN's trainer takes none
+        extra = {"ema_filter": True} if ema_filter else {}
+        self.trainers = [cls(seed=s, settings=self.settings, device=device,
+                             balanced_mode=balanced_mode, **extra)
+                         for s in self.seeds]
         #: wall-clock seconds of the last `fit` (stacking, capture and every
         #: epoch, host sync included)
         self.fit_seconds: float = 0.0
@@ -288,9 +286,11 @@ class SeedBank:
         bank.state = nn.ModuleDict({
             name: banked.stack([t.state[name] for t in trainers])
             for name in template.state.keys()})
+        # an optimizer is named by its network's path in the state
+        # (TMG-GAN's `gens.{i}`)
         bank.optimizers = {
-            name: Adam(list(bank.state[name].parameters()), opt.lr, opt.b1, opt.b2,
-                       opt.eps, replicas=k)
+            name: Adam(list(bank.state.get_submodule(name).parameters()), opt.lr, opt.b1,
+                       opt.b2, opt.eps, replicas=k)
             for name, opt in template.optimizers.items()}
         bank.generator = banked.ReplicaGenerators([t.generator for t in trainers], device)
         bank.loss_history = {key: [] for key in template.loss_keys}

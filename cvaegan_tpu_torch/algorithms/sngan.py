@@ -35,8 +35,6 @@ class SNGAN(GenerativeTrainer):
     config_key = "sngan"
     loss_keys = ("d_loss", "g_loss", "class_loss")
     loops = ("d", "c", "g")
-    #: `models/banked.py` has no banked SNGAN networks (ROADMAP A24)
-    bankable = False
     _jax_dims = staticmethod(convert.sngan_dims)
 
     def _build(self, init_generator: torch.Generator) -> Dict[str, nn.Module]:

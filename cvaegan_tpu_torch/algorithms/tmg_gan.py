@@ -41,7 +41,15 @@ from cvaegan_tpu_torch import convert
 from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
 from cvaegan_tpu_torch.core import config as config_lib
 from cvaegan_tpu_torch.core import losses
-from cvaegan_tpu_torch.core.state import Adam, adam, apply_eval, apply_train, grad_update, init_net
+from cvaegan_tpu_torch.core.state import (
+    Adam,
+    _total,
+    adam,
+    apply_eval,
+    apply_train,
+    grad_update,
+    init_net,
+)
 from cvaegan_tpu_torch.models.tmg import TMGCD, TMGGenerator
 
 #: samples per generator in the diversity step (`src/tmg_gan.py:120-146`)
@@ -62,8 +70,6 @@ class TMGGAN(GenerativeTrainer):
     #: the reference saves a scatter every 10 epochs (`src/tmg_gan.py:149`):
     #: the chunk hook runs at exactly those boundaries
     epoch_chunk = 10
-    #: `models/banked.py` has no banked TMG networks (ROADMAP A24)
-    bankable = False
     _jax_dims = staticmethod(convert.tmg_gan_dims)
     _state_from_jax = staticmethod(convert.tmg_gan_state_from_jax)
     #: whether a hook has already said that matplotlib is missing
@@ -115,9 +121,10 @@ class TMGGAN(GenerativeTrainer):
         def loss_fn():
             scores, probs, _ = cd(torch.cat([x_real, x_fake], dim=-2), self.generator)
             s_real, s_fake = scores.chunk(2, dim=-2)
-            d_loss = (s_fake.mean() - s_real.mean()) / 2.0
+            d_loss = (s_fake.mean((-2, -1)) - s_real.mean((-2, -1))) / 2.0
             # CE over softmax outputs: the reference's quirk, kept.
-            return d_loss + losses.cross_entropy(probs[: x_real.shape[-2]], y), d_loss
+            real_probs = probs[..., : x_real.shape[-2], :]
+            return d_loss + losses.cross_entropy(real_probs, y), d_loss
 
         _, d_loss = grad_update(self.optimizers["cd"], loss_fn)
         return d_loss.detach()
@@ -137,7 +144,7 @@ class TMGGAN(GenerativeTrainer):
             x_fake, _ = gen(z)
             _, _, hidden_real = cd(x_real, self.generator)
             s_fake, probs_fake, hidden_fake = cd(x_fake, self.generator)
-            loss = (-s_fake.mean() + losses.cross_entropy(probs_fake, y)
+            loss = (-s_fake.mean((-2, -1)) + losses.cross_entropy(probs_fake, y)
                     - gate * losses.cosine_similarity(hidden_real, hidden_fake))
             return loss, None
 
@@ -146,22 +153,24 @@ class TMGGAN(GenerativeTrainer):
 
     def _diversity_step(self, z: torch.Tensor) -> torch.Tensor:
         """Cross-generator decorrelation (`src/tmg_gan.py:120-146`): each
-        generator i runs in train mode on its own rows `z[i]` `[3, z_size]`
-        (BatchNorm over those 3 rows, its statistics committed); the loss
-        is the mean over ordered pairs i != j of the row-wise cosine of
-        their hidden states, row k against row k, divided by feature_num;
-        one Adam step per generator."""
+        generator i runs in train mode on its own rows `z[..., i, :, :]`
+        `[3, z_size]` (BatchNorm over those 3 rows, its statistics
+        committed); the loss is the mean over ordered pairs i != j of the
+        row-wise cosine of their hidden states, row k against row k,
+        divided by feature_num; one Adam step per generator. A seed bank's
+        `z` is `[K, L, 3, z_size]`: each replica's loss is its own."""
         gens = self.state["gens"].train()
         opts = [self.optimizers[f"gens.{i}"] for i in range(len(gens))]
-        hidden = torch.stack([gen(z[i])[1] for i, gen in enumerate(gens)])
+        hidden = torch.stack([gen(z.select(-3, i))[1] for i, gen in enumerate(gens)],
+                             dim=-3)
         hn = hidden / (torch.linalg.vector_norm(hidden, dim=-1, keepdim=True) + 1e-8)
-        cos = torch.einsum("ikd,jkd->ijk", hn, hn).mean(-1)
+        cos = torch.einsum("...ikd,...jkd->...ijk", hn, hn).mean(-1)
         n = len(gens)
         mask = 1.0 - torch.eye(n, device=hidden.device)
-        loss = (cos * mask).sum() / max(n * (n - 1), 1) / self.feature_num
+        loss = (cos * mask).sum((-2, -1)) / max(n * (n - 1), 1) / self.feature_num
         # the heads do not reach the hidden states: their gradient is 0,
         # and Adam still steps them, as optax does
-        grads = torch.autograd.grad(loss, [p for opt in opts for p in opt.params],
+        grads = torch.autograd.grad(_total(loss), [p for opt in opts for p in opt.params],
                                     allow_unused=True, materialize_grads=True)
         start = 0
         for opt in opts:
@@ -182,8 +191,7 @@ class TMGGAN(GenerativeTrainer):
         return {"d_loss": d_loss, "g_loss": g_loss}
 
     def _diversity_z(self) -> torch.Tensor:
-        return torch.randn((self.label_num, DIVERSITY_ROWS, self.gan_cfg.z_size),
-                           generator=self.generator, device=self.device)
+        return self._normal((self.label_num, DIVERSITY_ROWS, self.gan_cfg.z_size))
 
     def _epoch_body(self, epoch: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The class rounds, then one diversity step over every generator

@@ -5,7 +5,8 @@ float32, as the JAX package does. None of them reads a tensor's value on
 the host, so every one can run inside a captured CUDA graph.
 
 The training losses (`mse`, `kl_standard_normal`, `cross_entropy`, the
-Wasserstein losses) reduce a `[batch, ...]` input to a scalar and keep
+Wasserstein and hinge losses, `pinball`, `attention_entropy`,
+`cosine_similarity`) reduce a `[batch, ...]` input to a scalar and keep
 any axis in front of it: on the `[replicas, batch, ...]` tensors of a
 seed bank (`algorithms/seed_bank.py`) they give one loss per replica,
 each the mean over its own batch.
@@ -83,7 +84,8 @@ def hinge_d_loss(d_real: torch.Tensor, d_fake: torch.Tensor) -> torch.Tensor:
     """Hinge critic loss `E[relu(1-D(x))] + E[relu(1+D(G))]` (reference
     `src/sngan.py:100-110`)."""
     d_real, d_fake = _f32(d_real, d_fake)
-    return torch.mean(torch.relu(1.0 - d_real)) + torch.mean(torch.relu(1.0 + d_fake))
+    return (torch.mean(torch.relu(1.0 - d_real), dim=(-2, -1))
+            + torch.mean(torch.relu(1.0 + d_fake), dim=(-2, -1)))
 
 
 def pinball(pred: torch.Tensor, target: torch.Tensor,
@@ -92,19 +94,22 @@ def pinball(pred: torch.Tensor, target: torch.Tensor,
     [batch, dims]` at levels `quantiles [n_quantiles]` (reference
     `src/qg_smote.py:272-294`)."""
     pred, target = _f32(pred, target)
-    diff = target[:, None, :] - pred
-    q = torch.as_tensor(quantiles, dtype=torch.float32, device=pred.device)[None, :, None]
-    return torch.mean(torch.maximum(q * diff, (q - 1.0) * diff))
+    diff = target[..., None, :] - pred
+    q = torch.as_tensor(quantiles, dtype=torch.float32, device=pred.device)[:, None]
+    return torch.mean(torch.maximum(q * diff, (q - 1.0) * diff), dim=(-3, -2, -1))
 
 
 def attention_entropy(attn_probs, eps: float = 1e-9) -> torch.Tensor:
     """Mean attention entropy `mean(-sum a log(a + eps))` over the last
     axis (reference `src/rain_gan.py:269-289`), or the mean of an
-    `AttentionRowEntropy`'s precomputed row entropies."""
+    `AttentionRowEntropy`'s precomputed row entropies. The mean is over
+    the rows' `[batch, heads, seq]` axes; axes in front of them are kept."""
     if isinstance(attn_probs, AttentionRowEntropy):
-        return attn_probs.value.to(torch.float32).mean()
-    p = attn_probs.to(torch.float32)
-    return (-(p * torch.log(p + eps)).sum(-1)).mean()
+        rows = attn_probs.value.to(torch.float32)
+    else:
+        p = attn_probs.to(torch.float32)
+        rows = -(p * torch.log(p + eps)).sum(-1)
+    return rows.flatten(max(rows.dim() - 3, 0)).mean(-1)
 
 
 def gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
@@ -131,7 +136,7 @@ def cosine_similarity(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> to
     a, b = _f32(a, b)
     na = torch.sqrt(torch.sum(a * a, dim=-1) + eps)
     nb = torch.sqrt(torch.sum(b * b, dim=-1) + eps)
-    return torch.mean(torch.sum(a * b, dim=-1) / (na * nb))
+    return torch.mean(torch.sum(a * b, dim=-1) / (na * nb), dim=-1)
 
 
 # Generation-quality diagnostics (reference `src/ctgan.py:338-376`).

@@ -4,7 +4,8 @@
 
 The reference feeds every network a singleton sequence (inputs
 `unsqueeze(1)`'d, seq_len 1, `:139,222,300,349`); the blocks are written
-seq-length-generic (inputs `[batch, seq, dim]`), and each forward returns
+seq-length-generic (inputs `[..., batch, seq, dim]`: a seed bank's
+networks (`models/banked.py`) run `[K, batch, seq, dim]`), and each forward returns
 the last block's attention statistics for the entropy regulariser and
 `visualize_attention`. With seq_len 1 the softmax is over a single key, so
 the probabilities are all 1 and the entropy is exactly 0, as in the
@@ -47,7 +48,10 @@ class MultiHeadSelfAttention(nn.Module):
     blockwise kernel `block_attention_with_entropy`: O(seq) memory, no
     probability matrix, and the statistics are an `AttentionRowEntropy`
     of exact row entropies `[b, h, s]`. Otherwise they are the dense
-    probabilities `[b, h, s, s]`. The kernel path is forward-only.
+    probabilities `[b, h, s, s]`. Leading axes in front of `[b, s, dim]`
+    (a seed bank's replica axis) are kept: `[..., b, h, s(, s)]`; on the
+    kernel path they are folded into the kernel's batch with the heads.
+    The kernel path is forward-only.
     """
 
     def __init__(self, embed_dim: int, num_heads: int = 4,
@@ -63,28 +67,27 @@ class MultiHeadSelfAttention(nn.Module):
     def _kernel_path(self, x: torch.Tensor) -> bool:
         if self.use_kernel is not None:
             return self.use_kernel
-        s = x.shape[1]
+        s = x.shape[-2]
         return x.is_cuda and s >= self.kernel_min_seq and s % KERNEL_SEQ_MULTIPLE == 0
 
     def forward(self, x: torch.Tensor):
-        b, s, _ = x.shape
+        *lead, s, _ = x.shape
         h, hd = self.num_heads, self.embed_dim // self.num_heads
 
         def split_heads(t):
-            return t.reshape(b, s, h, hd).transpose(1, 2)
+            return t.reshape(*lead, s, h, hd).transpose(-3, -2)
 
         q, k, v = (split_heads(layer(x)) for layer in (self.query, self.key, self.value))
         if self._kernel_path(x):
             out, ent = ba.block_attention_with_entropy(
-                q.reshape(b * h, s, hd), k.reshape(b * h, s, hd),
-                v.reshape(b * h, s, hd))
-            out = out.reshape(b, h, s, hd)
-            stats = AttentionRowEntropy(ent.reshape(b, h, s))
+                q.reshape(-1, s, hd), k.reshape(-1, s, hd), v.reshape(-1, s, hd))
+            out = out.reshape(*lead, h, s, hd)
+            stats = AttentionRowEntropy(ent.reshape(*lead, h, s))
         else:
-            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * (hd ** -0.5)
+            scores = torch.einsum("...hqd,...hkd->...hqk", q, k) * (hd ** -0.5)
             stats = torch.softmax(scores, dim=-1)
-            out = torch.einsum("bhqk,bhkd->bhqd", stats, v)
-        out = out.transpose(1, 2).reshape(b, s, self.embed_dim)
+            out = torch.einsum("...hqk,...hkd->...hqd", stats, v)
+        out = out.transpose(-3, -2).reshape(*lead, s, self.embed_dim)
         return self.out(out), stats
 
 
@@ -133,12 +136,12 @@ class RAINEncoder(nn.Module):
         self.log_var = Dense(128, latent_dim)
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor):
-        h = torch.cat([x, one_hot(labels, self.num_classes)], dim=-1)[:, None, :]
+        h = torch.cat([x, one_hot(labels, self.num_classes)], dim=-1)[..., None, :]
         h = leaky_relu(self.norm(self.proj(h)))
         for block in self.blocks:
             h, stats = block(h)
             h = leaky_relu(h)
-        h = h[:, 0, :]
+        h = h[..., 0, :]
         return (self.mu(h), self.log_var(h)), stats
 
 
@@ -158,12 +161,12 @@ class RAINGenerator(nn.Module):
         self.head = Dense(64, output_dim)
 
     def forward(self, z: torch.Tensor, labels: torch.Tensor):
-        h = torch.cat([z, one_hot(labels, self.num_classes)], dim=-1)[:, None, :]
+        h = torch.cat([z, one_hot(labels, self.num_classes)], dim=-1)[..., None, :]
         h = leaky_relu(self.norm(self.proj(h)))
         for block in self.blocks:
             h, stats = block(h)
             h = leaky_relu(h)
-        return torch.sigmoid(self.head(h[:, 0, :])), stats
+        return torch.sigmoid(self.head(h[..., 0, :])), stats
 
 
 class RAINDiscriminator(nn.Module):
@@ -180,12 +183,12 @@ class RAINDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None):
         cond = (one_hot(labels, self.num_classes) if labels is not None else
-                torch.zeros(x.shape[0], self.num_classes, dtype=x.dtype, device=x.device))
-        h = leaky_relu(self.proj(torch.cat([x, cond], dim=-1)[:, None, :]))
+                torch.zeros(*x.shape[:-1], self.num_classes, dtype=x.dtype, device=x.device))
+        h = leaky_relu(self.proj(torch.cat([x, cond], dim=-1)[..., None, :]))
         for block in self.blocks:
             h, stats = block(h)
             h = leaky_relu(h)
-        return self.head(h[:, 0, :]), stats
+        return self.head(h[..., 0, :]), stats
 
 
 class RAINClassifier(nn.Module):
@@ -201,8 +204,8 @@ class RAINClassifier(nn.Module):
         self.head = Dense(128, num_classes)
 
     def forward(self, x: torch.Tensor):
-        h = F.relu(self.norm(self.proj(x[:, None, :])))
+        h = F.relu(self.norm(self.proj(x[..., None, :])))
         for block in self.blocks:
             h, stats = block(h)
             h = F.relu(h)
-        return self.head(h[:, 0, :]), stats
+        return self.head(h[..., 0, :]), stats

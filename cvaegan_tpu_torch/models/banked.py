@@ -1,13 +1,19 @@
-"""Networks of a seed bank: K replicas of one MLP network in one module.
+"""Networks of a seed bank: K replicas of one network in one module.
 
-`stack(nets)` takes K networks of the same architecture (`models/mlp.py`)
-and returns one network of the same class whose layers are banked: every
-parameter and buffer carries a leading replica axis K, a dense layer is
-one batched matmul over the K replicas (`torch.baddbmm`), BatchNorm's
-batch moments and spectral norm's power iteration are per replica, and
-dropout draws each replica's mask from that replica's own generator. The
-network's own forward then runs unchanged on `[K, batch, features]`, so
-a step of a bank is one kernel sequence for all K replicas, not K.
+`stack(nets)` takes K networks of the same architecture (any of the
+port's: `models/{mlp,attention,sngan,ctgan,quantile,tmg}.py`, or an
+`nn.ModuleList` of them) and returns one network of the same class whose
+layers are banked: every parameter and buffer carries a leading replica
+axis K, a dense layer is one batched matmul over the K replicas
+(`torch.baddbmm`, on inputs of any rank >= 3), BatchNorm's batch moments
+and spectral norm's power iteration are per replica, LayerNorm's scale
+and bias broadcast over every axis between the replica and the feature
+axis, and dropout draws each replica's mask from that replica's own
+generator. The network's own forward then runs unchanged on `[K, batch,
+features]` (`[K, batch, seq, features]` inside RAIN's attention stacks),
+so a step of a bank is one kernel sequence for all K replicas, not K.
+Under `layers.state_frozen` a banked layer updates nothing, as the
+serial layers do.
 
 `load` and `store` copy the K networks' tensors into and out of the
 banked one, in place, so a captured epoch stays valid.
@@ -73,10 +79,20 @@ def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + eps)
 
 
+def _per_replica(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`t [K, features]` viewed to broadcast against `x [K, ..., features]`."""
+    return t.view(t.shape[0], *[1] * (x.dim() - 2), t.shape[-1])
+
+
 def _linear(x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+    """`x [K, ..., in]` times replica k's `weight [K, out, in]` (and plus
+    its bias): the axes between are flattened into one batched matmul."""
+    flat = x.reshape(x.shape[0], -1, x.shape[-1])
     if bias is None:
-        return torch.bmm(x, weight.transpose(1, 2))
-    return torch.baddbmm(bias.unsqueeze(1), x, weight.transpose(1, 2))
+        out = torch.bmm(flat, weight.transpose(1, 2))
+    else:
+        out = torch.baddbmm(bias.unsqueeze(1), flat, weight.transpose(1, 2))
+    return out.reshape(*x.shape[:-1], weight.shape[1])
 
 
 class BankedDense(nn.Module):
@@ -101,11 +117,13 @@ class BankedSpectralDense(nn.Module):
         self.weight = nn.Parameter(_stacked(l.weight for l in layers))
         self.bias = (nn.Parameter(_stacked(l.bias for l in layers))
                      if layers[0].bias is not None else None)
+        #: False under `state_frozen`: no power iteration in train mode
+        self.update_state = True
         self.register_buffer("u", _stacked(l.u for l in layers))
         self.register_buffer("v", _stacked(l.v for l in layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and self.update_state:
             with torch.no_grad():
                 v = _l2_normalize(torch.bmm(self.u.unsqueeze(1), self.weight).squeeze(1))
                 self.u.copy_(_l2_normalize(torch.bmm(self.weight, v.unsqueeze(2)).squeeze(2)))
@@ -120,26 +138,30 @@ class BankedBatchNorm(nn.Module):
     def __init__(self, layers: Sequence[BatchNorm]):
         super().__init__()
         self.momentum, self.eps = layers[0].momentum, layers[0].eps
+        #: False under `state_frozen`: batch statistics, no running update
+        self.update_state = True
         self.weight = nn.Parameter(_stacked(l.weight for l in layers))
         self.bias = nn.Parameter(_stacked(l.bias for l in layers))
         self.register_buffer("running_mean", _stacked(l.running_mean for l in layers))
         self.register_buffer("running_var", _stacked(l.running_var for l in layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            mean, var = _moments(x, -2)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        else:
+        if not self.training:
             mean, var = self.running_mean, self.running_var
+        else:
+            mean, var = _moments(x, -2)
+            if self.update_state:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         scale = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.unsqueeze(-2)) * scale.unsqueeze(-2) + self.bias.unsqueeze(-2)
 
 
 class BankedLayerNorm(nn.Module):
-    """K `LayerNorm` layers: scale and bias `[K, features]`."""
+    """K `LayerNorm` layers: scale and bias `[K, features]`, on inputs
+    `[K, ..., features]`."""
 
     def __init__(self, layers: Sequence[LayerNorm]):
         super().__init__()
@@ -149,8 +171,13 @@ class BankedLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, var = _moments(x, -1, keepdim=True)
-        return ((x - mean) * (torch.rsqrt(var + self.eps) * self.weight.unsqueeze(-2))
-                + self.bias.unsqueeze(-2))
+        return ((x - mean) * (torch.rsqrt(var + self.eps) * _per_replica(self.weight, x))
+                + _per_replica(self.bias, x))
+
+
+def _keep_mask(x: torch.Tensor, keep_prob: float,
+               generator: ReplicaGenerators) -> torch.Tensor:
+    return generator.rand(x.shape[1:]) < keep_prob
 
 
 class BankedDropout(nn.Module):
@@ -165,7 +192,7 @@ class BankedDropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = generator.rand(x.shape[1:]) < keep_prob
+        keep = _keep_mask(x, keep_prob, generator)
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

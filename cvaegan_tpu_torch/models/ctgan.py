@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cvaegan_tpu_torch.models.banked import ReplicaGenerators
 from cvaegan_tpu_torch.models.layers import (
     BatchNorm,
     Dense,
@@ -29,11 +30,15 @@ from cvaegan_tpu_torch.models.layers import (
 )
 
 
-def random_column_mask(generator: torch.Generator, batch: int, num_columns: int,
-                       device) -> torch.Tensor:
+def random_column_mask(generator, batch: int, num_columns: int, device) -> torch.Tensor:
     """Training mask: one column per row, uniform (`:91-93`), as float32
-    one-hot `[batch, num_columns]`."""
-    cols = torch.randint(0, num_columns, (batch,), generator=generator, device=device)
+    one-hot `[batch, num_columns]`. From a seed bank's `ReplicaGenerators`
+    each replica draws its own `[batch]`, as its trainer does, and the
+    mask is `[K, batch, num_columns]`."""
+    if isinstance(generator, ReplicaGenerators):
+        cols = generator.randint([num_columns] * len(generator.generators), (batch,))
+    else:
+        cols = torch.randint(0, num_columns, (batch,), generator=generator, device=device)
     return F.one_hot(cols, num_columns).to(torch.float32)
 
 
@@ -106,7 +111,8 @@ class CTGANDiscriminator(nn.Module):
                 column_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cond = (one_hot(labels, self.num_classes) if labels is not None else
-                torch.zeros(x.shape[0], self.num_classes, dtype=x.dtype, device=x.device))
+                torch.zeros(*x.shape[:-1], self.num_classes, dtype=x.dtype,
+                            device=x.device))
         h = self.dropout(leaky_relu(self.proj(torch.cat([x, cond, column_mask], dim=-1))),
                          generator)
         for block in self.blocks:

@@ -310,6 +310,34 @@ def test_attention_auto_dispatch_launches_once_per_forward(device):
     assert block_attention.ENTROPY_LAUNCHES == before + 2
 
 
+def test_banked_attention_folds_the_replica_axis_into_the_kernel_batch(device):
+    """A seed bank's attention input `[K, b, seq, dim]` at seq 256 takes the
+    kernel, one B3 launch per forward with the replicas folded into its
+    batch, and gives each replica its own block's output and entropies."""
+    from cvaegan_tpu_torch.models import banked
+
+    g = torch.Generator().manual_seed(1)
+    blocks = [ResidualAttentionBlock(64, 64) for _ in range(2)]
+    with torch.no_grad():
+        for block in blocks:
+            for p in block.parameters():
+                p.normal_(0.0, p.shape[-1] ** -0.5 if p.dim() == 2 else 0.1, generator=g)
+    blocks = [b.to(device).eval() for b in blocks]
+    bank = banked.stack(blocks).eval()
+    x = torch.randn(2, 2, 256, 64, generator=g).to(device)
+    before = block_attention.ENTROPY_LAUNCHES
+    with torch.no_grad():
+        out, stats = bank(x)
+    torch.cuda.synchronize()
+    assert block_attention.ENTROPY_LAUNCHES == before + 1
+    assert isinstance(stats, AttentionRowEntropy) and stats.value.shape == (2, 2, 4, 256)
+    for k, block in enumerate(blocks):
+        with torch.no_grad():
+            want_out, want_stats = block(x[k])
+        torch.testing.assert_close(out[k], want_out, **ATTN_TOL)
+        torch.testing.assert_close(stats.value[k], want_stats.value, **ATTN_TOL)
+
+
 def test_attention_auto_dispatch_raises_for_a_head_dim_the_kernel_lacks(device):
     """Auto dispatch is the JAX rule with CUDA for TPU: a head dim of 48 at
     seq 128 goes to the kernel, which raises rather than falling back."""

@@ -143,8 +143,9 @@ def test_new_trainers_need_cuda_unless_asked_for_cpu(monkeypatch, name):
     with pytest.raises(RuntimeError):
         cls(device="cuda")
     assert cls(device="cpu").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A24"):
-        SeedBank(cls, seeds=[0], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SeedBank(cls, seeds=[0, 1])
+    assert SeedBank(cls, seeds=[0], device="cpu").trainers[0].device == torch.device("cpu")
 
 
 def test_kernel_wrapper_rejects_other_devices():

@@ -20,7 +20,7 @@ classes, the eval forwards (CTGAN's under the round-robin mask),
 `calculate_metrics`, `load_jax_state`'s accounting of every leaf, the
 downstream classifier's warm-started step from each companion against
 the JAX `Classifier`'s batch step, a 2-epoch pipeline of each trainer
-with that warm start, and the `SeedBank` refusal.
+with that warm start, and what `SeedBank` refuses for these trainers.
 """
 
 import copy
@@ -648,5 +648,12 @@ def test_pipeline_with_warm_start(tmp_path, model):
 
 @pytest.mark.parametrize("name", ["RAIN_GAN", "SNGAN", "CTGAN", "QG_SMOTE", "TMGGAN"])
 def test_seed_bank_refuses_at_construction(name):
-    with pytest.raises(NotImplementedError, match="A24"):
-        SeedBank(getattr(cvaegan_tpu_torch, name), seeds=[0, 1], device="cpu")
+    """A bank of any trainer builds (its banked forms: `models/banked.py`);
+    what it still refuses at construction is sharding the replica axis
+    over devices (`mesh=`, ROADMAP A21)."""
+    cls = getattr(cvaegan_tpu_torch, name)
+    bank = SeedBank(cls, seeds=[0, 1], device="cpu")
+    assert [type(t) for t in bank.trainers] == [cls, cls]
+    assert [t.seed for t in bank.trainers] == [0, 1]
+    with pytest.raises(NotImplementedError, match="A21"):
+        SeedBank(cls, seeds=[0, 1], device="cpu", mesh=object())
