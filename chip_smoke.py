@@ -92,7 +92,30 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
      twice the trainer's serial replayed epoch's (`family`); and one
      `generate_samples_fast` on a QG-SMOTE replica (one B1 launch, held to
      the generator run in float64). B1, B2 and B3 launch 0 times on every
-     training path.
+     training path;
+ 11. streamed: the out-of-core path on the Car-Hacking stand-in of
+     `scripts/prepare_can_dataset.py` (2M frames of 10 features and 5
+     classes, split in time order into 1.8M train and 0.2M test rows,
+     written as CSV): the native reader (built from
+     `cvaegan_tpu_torch/native/`, its rows/s, its first 10k rows equal to
+     the plain reader's); `run_streamed_pipeline` for the CVAE-GAN in
+     balanced mode at 1M-row windows (two, the second ragged), 10 GAN and
+     1 classifier epoch per window (15,625 captured classifier steps per
+     window), warm-started, tested streamed: stage seconds, F1s, one
+     capture per present-class pattern, replays = windows x epochs (and
+     the classifier's blocks and steps), CUDA-event times of a replayed
+     epoch and a classifier block, peak device memory; a strict streamed
+     fit whose replay on the refilled second window equals an eager epoch
+     there, bitwise, with each window's upload time; the blob stand-in
+     streamed in 256-row windows, the second lacking class 2, strict and
+     balanced: captured = eager bitwise, Adam counts in closed form; the
+     classifier's captured 128-step block against its eager loop,
+     bitwise, warm-started from a CVAE-GAN, an SNGAN and a CTGAN; an
+     auto-checkpointed streamed fit
+     restored into a fresh trainer, whose further fit equals the
+     original's bitwise (save and restore seconds); `trace()` around a
+     replay writes a trace file, `nan_debug()` raises on a NaN made on the
+     card, and `fit` inside it replays nothing. No kernel launches there.
 
 Each phase prints one JSON line; then the `kernels` line, the card's name
 and power limit as `nvidia-smi` gives them, and as the last line
@@ -1282,6 +1305,406 @@ def bank_family_phase(torch, tp, tconfig, make_ds, fused_mlp, ba, counter, famil
         train_launches, fast_launches
 
 
+# Out of core (`streamed`): the Car-Hacking stand-in of
+# `scripts/prepare_can_dataset.py::synthetic_car_hacking` (10 features:
+# CAN id, DLC, 8 data bytes; 5 classes, time-ordered frames, attack bursts
+# at the published proportions), split in time order, streamed through
+# 1M-row windows as the CLI's default (two windows, the second ragged).
+STREAM_FRAMES, STREAM_TRAIN = 2_000_000, 1_800_000
+STREAM_WINDOW = 1_000_000
+STREAM_GAN_EPOCHS, STREAM_CLF_EPOCHS = 10, 1
+# The strict streamed fit whose replay on the refilled second window is
+# held to an eager epoch there, bitwise.
+STREAM_STRICT_EPOCHS = 2
+# The blob stand-in streamed in windows of 256 rows, the second lacking
+# class 2; epochs per window; `epoch_chunk` of the checkpointed fit.
+SMALL_WINDOW, SMALL_EPOCHS, SMALL_CHUNK = 256, 4, 2
+# The classifier's captured block against its eager loop: one epoch of
+# 8192 rows at batch 64 = 128 steps, one block.
+CLF_CHECK_ROWS = 8192
+CLF_COMPANIONS = ("CVAEGAN", "SNGAN", "CTGAN")
+
+
+def load_prepare_can():
+    """`scripts/prepare_can_dataset.py`, loaded by path (its top imports
+    numpy only)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / "prepare_can_dataset.py"
+    spec = importlib.util.spec_from_file_location("prepare_can_dataset", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_int_csv(path, a) -> None:
+    """A headerless CSV of a non-negative integer-valued array, formatted
+    by column through a lookup table (np.savetxt takes ~5x longer)."""
+    a = np.asarray(a).astype(np.int64)
+    check(a.min() >= 0 and a.max() < 4096, f"write_int_csv: values in [{a.min()}, {a.max()}]")
+    cells = np.array([str(i).encode() for i in range(4096)])[a]
+    line = cells[:, 0]
+    for j in range(1, a.shape[1]):
+        line = np.char.add(np.char.add(line, b","), cells[:, j])
+    pathlib.Path(path).write_bytes(b"\n".join(line.tolist()) + b"\n")
+
+
+def write_float_csv(path, x, y, classes) -> None:
+    np.savetxt(f"{path}/x.csv", x, delimiter=",", fmt="%.9g")
+    np.savetxt(f"{path}/y.csv", np.eye(classes, dtype=np.int64)[y], delimiter=",", fmt="%d")
+
+
+def saved_tensors(model):
+    """Every tensor a checkpoint holds: the networks' and the optimizers'."""
+    return [*model.state.state_dict().values(),
+            *[t for opt in model.optimizers.values() for t in opt.tensors()]]
+
+
+def window_patterns(y, window, classes):
+    """Each window's present classes, as `ClassIndex.pattern` gives them."""
+    return [tuple(bool(c) for c in np.bincount(y[i:i + window], minlength=classes) > 0)
+            for i in range(0, len(y), window)]
+
+
+def replay_vs_eager(torch, model):
+    """One replay of the trainer's kept capture for its current data against
+    one eager epoch from the same state and generator: (bitwise equal, max
+    abs difference, whether the replay needed a new capture)."""
+    epochs_before = len(model._graphs)
+    replay = model._captured_epoch()
+    new_capture = len(model._graphs) != epochs_before
+    static = model._static_tensors()
+    with torch.no_grad():
+        saved = [t.detach().clone() for t in static]
+    rng_state = model.generator.get_state()
+    model._epoch_t.fill_(0)
+    replay()
+    replayed = [t.detach().clone() for t in static]
+    with torch.no_grad():
+        for t, s in zip(static, saved):
+            t.copy_(s)
+    model.generator.set_state(rng_state)
+    model._epoch_t.fill_(0)
+    model._epoch()
+    torch.cuda.synchronize()
+    static = [t.detach() for t in static]
+    diff = max(float((a.double() - b.double()).abs().max()) for a, b in zip(replayed, static))
+    return all(torch.equal(a, b) for a, b in zip(replayed, static)), diff, new_capture
+
+
+def streamed_phase(torch, tp, tconfig, fused_mlp, ba, counter):
+    """The `streamed` phase: the out-of-core path on the card. Returns (the
+    report, the kernels' launches over it)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from cvaegan_tpu_torch.data import streaming
+    from cvaegan_tpu_torch.data.tabular import TabularDataset, minmax_scale
+    from cvaegan_tpu_torch.pipelines.balance import run_streamed_pipeline
+    from cvaegan_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from cvaegan_tpu_torch.utils.profiling import nan_debug, trace
+
+    report = {}
+    tmp = tempfile.TemporaryDirectory()
+    root = pathlib.Path(tmp.name)
+    zero_counts(fused_mlp, ba)
+
+    # the corpus, split in time order -------------------------------------
+    t0 = time.perf_counter()
+    x, y, meta = load_prepare_can().synthetic_car_hacking(STREAM_FRAMES, seed=0)
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                           "cvaegan_tpu")]
+    check(not loaded, f"loading the Car-Hacking stand-in imported {loaded}")
+    classes = len(meta["classes"])
+    splits = {"train": slice(0, STREAM_TRAIN), "test": slice(STREAM_TRAIN, None)}
+    for split, rows in splits.items():
+        write_int_csv(root / f"x_{split}.csv", x[rows])
+        write_int_csv(root / f"y_{split}.csv", np.eye(classes, dtype=np.int64)[y[rows]])
+    y_train = y[splits["train"]]
+    report["corpus"] = {
+        "frames": len(y), "features": int(x.shape[1]), "classes": classes,
+        "train_counts": np.bincount(y_train, minlength=classes).tolist(),
+        "test_counts": np.bincount(y[splits["test"]], minlength=classes).tolist(),
+        "csv_mb": sum(p.stat().st_size for p in root.glob("*.csv")) / 1e6,
+        "make_and_write_seconds": time.perf_counter() - t0}
+
+    # 1. the native reader ----------------------------------------------------
+    reader = streaming.StreamingCSV(root / "x_train.csv")
+    check(reader.backend == "native", f"StreamingCSV took the {reader.backend} reader")
+    t0 = time.perf_counter()
+    rows = sum(len(chunk) for chunk in reader)
+    read_s = time.perf_counter() - t0
+    check(rows == STREAM_TRAIN, f"the native reader gave {rows} rows")
+    head = root / "head.csv"
+    with open(root / "x_train.csv", "rb") as f:
+        head.write_bytes(b"".join(f.readline() for _ in range(10_000)))
+    native = next(iter(streaming.StreamingCSV(head, 10_000)))
+    plain = np.concatenate(list(streaming.StreamingCSV(head, 10_000)._iter_plain()))
+    check(np.array_equal(native, plain) and np.array_equal(native, x[:10_000]),
+          "the native reader's first 10k rows differ from the plain reader's or the corpus")
+    report["reader"] = {"backend": reader.backend, "rows": rows, "seconds": read_s,
+                        "rows_per_s": rows / read_s, "head_10k_native_equals_plain": True}
+
+    # 2. the streamed pipeline ----------------------------------------------
+    settings = tconfig.Settings()
+    settings.paths = tconfig.Paths(root=root / "out")
+    patterns = window_patterns(y_train, STREAM_WINDOW, classes)
+    windows = len(patterns)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()  # earlier phases' tensors still alive
+    counter.reset()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        result = run_streamed_pipeline(
+            tp.CVAEGAN, "CVAE_GAN", root, window_rows=STREAM_WINDOW,
+            gan_epochs_per_window=STREAM_GAN_EPOCHS, clf_epochs_per_window=STREAM_CLF_EPOCHS,
+            settings=settings, seed=0, balanced_mode=True, warm_start=True, device="cuda")
+    torch.cuda.synchronize()
+    pipeline_s = time.perf_counter() - t0
+    model, clf = result["model"], result["classifier"]
+    nb = -(-STREAM_WINDOW // settings.classifier.batch_size)
+    clf_replays = windows * STREAM_CLF_EPOCHS * (nb // clf.BLOCK_STEPS + nb % clf.BLOCK_STEPS)
+    gan_replays = windows * STREAM_GAN_EPOCHS
+    captures = counter.epochs
+    check(result["gan_windows"] == windows and result["clf_windows"] == windows,
+          f"windows {result['gan_windows']}, {result['clf_windows']} (expected {windows})")
+    check(captures == len(set(patterns)),
+          f"{captures} captured epochs for {len(set(patterns))} present-class patterns")
+    check(counter.replays == gan_replays + clf_replays,
+          f"{counter.replays} replays, expected {gan_replays} epochs + {clf_replays} "
+          "classifier blocks and steps")
+    check(clf._graphs is not None and clf._graphs[1]["block"] is not None,
+          "the classifier's epoch was not captured")
+    history = np.asarray([model.loss_history[k] for k in model.loss_keys])
+    check(history.shape == (len(model.loss_keys), gan_replays) and np.isfinite(history).all(),
+          f"streamed loss history {history.shape}, finite {np.isfinite(history).all()}")
+    f1s = (result["multiclass_metrics"]["F1"], result["binary_metrics"]["F1"])
+    check(all(np.isfinite(f1s)), f"streamed F1 {f1s}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_above_gb = peak_gb - held_before / 1e9
+
+    replay = model._graph[1].replay
+    (epoch_ms,), epoch_rounds = cuda_ms(torch, [replay], iters=5, reps=3, warmup=1)
+    window = clf._window
+    block = clf._graphs[1]["block"]
+
+    def block_replay():
+        window["batch"].zero_()
+        block.replay()
+
+    (block_ms,), block_rounds = cuda_ms(torch, [block_replay], iters=5, reps=3, warmup=1)
+    block_break = breakdown(torch, block_replay, block_ms, calls=1, top=6)
+    opt = clf._new_optimizer()
+
+    def eager_step():
+        window["batch"].zero_()
+        clf._indexed_step(opt)
+
+    (eager_steps_per_s,) = samples_per_s(torch, [eager_step], 1, iters=20, reps=2)
+    report["pipeline"] = {
+        "trainer": "cvae_gan", "mode": "balanced", "window_rows": STREAM_WINDOW,
+        "windows": windows, "gan_epochs_per_window": STREAM_GAN_EPOCHS,
+        "clf_epochs_per_window": STREAM_CLF_EPOCHS, "clf_steps_per_window_epoch": nb,
+        "window_patterns": [list(p) for p in patterns], "captured_epochs": captures,
+        "replays": {"gan_epochs": gan_replays, "clf_blocks_and_steps": clf_replays},
+        "stage_seconds": {k: result[k] for k in ("minmax_seconds", "gan_fit_seconds",
+                                                 "clf_fit_seconds", "test_seconds",
+                                                 "total_seconds")},
+        "pipeline_seconds": pipeline_s,
+        "macro_f1": f1s[0], "binary_f1": f1s[1],
+        "multiclass_metrics": result["multiclass_metrics"],
+        "binary_metrics": result["binary_metrics"],
+        "replayed_gan_epoch_device_ms": epoch_ms, "gan_epoch_rounds": epoch_rounds[0],
+        "clf_block_device_ms": block_ms, "clf_block_rounds": block_rounds[0],
+        "clf_block_breakdown": block_break,
+        "clf_captured_step_device_ms": block_ms / clf.BLOCK_STEPS,
+        "clf_eager_step_host_ms": 1e3 / eager_steps_per_s,
+        "max_memory_allocated_gb": peak_gb, "peak_above_phase_start_gb": peak_above_gb}
+
+    # 3a. strict: a replay on the refilled second window against eager -------
+    strict = tp.CVAEGAN(seed=0, device="cuda", settings=train_settings(tconfig, 1))
+    strict.verbose = False
+    uploads = []
+    set_data = strict._set_data
+
+    def timed_set_data(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        set_data(*args)
+        torch.cuda.synchronize()
+        uploads.append((time.perf_counter() - t) * 1e3)
+
+    strict._set_data = timed_set_data
+    counter.reset()
+    strict.fit_streamed(root / "x_train.csv", root / "y_train.csv", window_rows=STREAM_WINDOW,
+                        epochs_per_window=STREAM_STRICT_EPOCHS)
+    strict_captures = counter.epochs
+    bitwise, diff, new_capture = replay_vs_eager(torch, strict)
+    check(strict_captures == len(set(patterns)) and not new_capture,
+          f"strict streamed fit: {strict_captures} captures, a new one for the last window: "
+          f"{new_capture}")
+    check(bitwise, f"strict: the replay on the refilled window differs from an eager epoch "
+          f"there (max abs {diff})")
+    report["refilled_window"] = {
+        "mode": "strict", "epochs_per_window": STREAM_STRICT_EPOCHS,
+        "captured_epochs": strict_captures,
+        "replay_reuses_first_window_capture": len(set(patterns)) == 1,
+        "replay_equals_eager_bitwise": bitwise, "max_abs_diff": diff,
+        "window_upload_ms": uploads}
+
+    # 3b. the blob stand-in, its second window lacking class 2 ---------------
+    ds = standin_dataset(TabularDataset, minmax_scale)
+    two = np.nonzero(ds.tr_labels == 2)[0]
+    rest = np.nonzero(ds.tr_labels != 2)[0]
+    order = np.concatenate([two[:100], rest[:156], rest[156:412], two[100:], rest[412:]])
+    sx, sy = ds.tr_samples[order], ds.tr_labels[order]
+    small = root / "small"
+    small.mkdir()
+    write_float_csv(small, sx, sy, CLASSES)
+    small_patterns = window_patterns(sy, SMALL_WINDOW, CLASSES)
+    check(not small_patterns[1][2], "the small corpus's second window holds class 2")
+
+    def small_fit(eager, balanced=False, **attrs):
+        m = tp.CVAEGAN(seed=0, device="cuda", settings=train_settings(tconfig, 1),
+                       balanced_mode=balanced)
+        m.verbose = False
+        for k, v in attrs.items():
+            setattr(m, k, v)
+        m.fit_streamed(small / "x.csv", small / "y.csv", window_rows=SMALL_WINDOW,
+                       epochs_per_window=SMALL_EPOCHS, eager=eager)
+        torch.cuda.synchronize()
+        return m
+
+    # strict: absent rounds left out; balanced: labels over the present
+    # classes (their order computed on the device inside the capture)
+    report["absent_class"] = {"window_rows": SMALL_WINDOW, "windows": len(small_patterns),
+                              "window_patterns": [list(p) for p in small_patterns]}
+    for mode in ("strict", "balanced"):
+        balanced = mode == "balanced"
+        counter.reset()
+        captured = small_fit(False, balanced)
+        small_captures = counter.epochs
+        eager = small_fit(True, balanced)
+        err, ratio, bitwise = compare_fits(torch, captured, eager)
+        cfg = captured.gan_cfg
+        rounds = (len(small_patterns) if balanced
+                  else sum(sum(p) for p in small_patterns)) * SMALL_EPOCHS
+        want = {"encoder": rounds * cfg.g_loop_num, "generator": rounds * cfg.g_loop_num,
+                "discriminator": rounds * cfg.d_loop_num, "classifier": rounds * cfg.c_loop_num}
+        counts = {k: int(opt.count) for k, opt in captured.optimizers.items()}
+        check(small_captures == len(set(small_patterns)),
+              f"small corpus, {mode}: {small_captures} captures for "
+              f"{len(set(small_patterns))} patterns")
+        check(bitwise, f"small corpus, {mode}: captured and eager streamed fits differ ({err})")
+        check(counts == want, f"small corpus, {mode}: Adam counts {counts}, closed form {want}")
+        report["absent_class"][mode] = {
+            "captured_epochs": small_captures, "captured_equals_eager_bitwise": bitwise,
+            "adam_counts": counts, "closed_form": want}
+
+    # 3c. the classifier's captured block against its eager loop ------------
+    rng = np.random.default_rng(3)
+    cx = rng.random((CLF_CHECK_ROWS, FEATURES), dtype=np.float32)
+    cy = (np.arange(CLF_CHECK_ROWS) % CLASSES).astype(np.int32)
+    clf_report = {}
+    for name in CLF_COMPANIONS:
+        companion = getattr(tp, name)(seed=0, device="cuda",
+                                      settings=train_settings(tconfig, 1))
+        companion._prepare((cx, cy))
+        fits = {}
+        for eager in (False, True):
+            s = train_settings(tconfig, 1)
+            s.classifier.epochs = 1
+            c = tp.Classifier(name, seed=0, settings=s, device="cuda")
+            c.warm_start_from(companion)
+            counter.reset()
+            c.fit((cx, cy), eager=eager)
+            torch.cuda.synchronize()
+            fits[eager] = (c, counter.replays)
+        a, b = fits[False][0], fits[True][0]
+        tensors = [(u, v) for u, v in zip(a.module.state_dict().values(),
+                                          b.module.state_dict().values())]
+        same = all(torch.equal(u, v) for u, v in tensors)
+        moved = not all(torch.equal(u, v) for u, v in zip(
+            a.module.state_dict().values(), companion.state["classifier"].state_dict().values()))
+        check(fits[False][1] == 1 and fits[True][1] == 0,
+              f"{name} companion: replays captured {fits[False][1]}, eager {fits[True][1]}")
+        check(same and moved, f"{name} companion: captured block equals eager {same}, "
+              f"moved from the companion {moved}")
+        clf_report[name] = {"steps": CLF_CHECK_ROWS // 64, "block_replays": fits[False][1],
+                            "captured_equals_eager_bitwise": same,
+                            "tensors": len(tensors)}
+    report["classifier_block_vs_eager"] = clf_report
+
+    # 4. checkpoints ----------------------------------------------------------
+    auto = root / "auto_ckpt"
+    original = small_fit(False, epoch_chunk=SMALL_CHUNK, checkpoint_dir=auto)
+    check((auto / "meta.json").exists() and (auto / "state.pt").exists(),
+          "no checkpoint was written during the streamed fit")
+    t0 = time.perf_counter()
+    save_checkpoint(original, root / "saved_ckpt")
+    save_s = time.perf_counter() - t0
+    resumed = tp.CVAEGAN(seed=7, device="cuda", settings=train_settings(tconfig, 1))
+    resumed.verbose = False
+    t0 = time.perf_counter()
+    restore_checkpoint(resumed, auto, (sx, sy))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_state = all(torch.equal(a, b) for a, b in zip(saved_tensors(original),
+                                                       saved_tensors(resumed)))
+    check(same_state, "the restored trainer's tensors differ from the saved trainer's")
+    counter.reset()
+    for m in (original, resumed):
+        m.checkpoint_dir = None
+        m.fit_streamed(small / "x.csv", small / "y.csv", window_rows=SMALL_WINDOW,
+                       epochs_per_window=SMALL_EPOCHS)
+    torch.cuda.synchronize()
+    further = len(small_patterns) * SMALL_EPOCHS
+    err, _, bitwise = compare_fits(torch, original, resumed)
+    check(counter.replays == 2 * further, f"resumed fits: {counter.replays} replays, "
+          f"expected {2 * further}")
+    check(bitwise, f"the resumed fit differs from the unbroken one ({err})")
+    report["checkpoint"] = {"epoch_chunk": SMALL_CHUNK, "auto_checkpoint_written": True,
+                            "save_seconds": save_s, "restore_seconds": restore_s,
+                            "further_replayed_epochs": further,
+                            "resumed_equals_unbroken_bitwise": bitwise}
+
+    # 5. profiling -------------------------------------------------------------
+    from torch.autograd import DeviceType
+
+    with trace(root / "trace") as prof:
+        replay()
+    traces = list((root / "trace").glob("*.pt.trace.json"))
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    check(traces, "trace() wrote no trace file")
+    raised = ""
+    with nan_debug():
+        try:
+            torch.log(torch.full((4,), -1.0, device="cuda"))
+        except FloatingPointError as e:
+            raised = str(e)
+    check("log" in raised, f"nan_debug did not raise on a NaN from log(-1): {raised!r}")
+    counter.reset()
+    debugged = tp.CVAEGAN(seed=0, device="cuda", settings=train_settings(tconfig, 1),
+                          balanced_mode=True)
+    debugged.verbose = False
+    with nan_debug():
+        debugged.fit(ds)
+    check(counter.replays == 0 and debugged._graph is None,
+          f"fit inside nan_debug replayed {counter.replays} graphs")
+    report["profiling"] = {"trace_files": len(traces),
+                           "trace_bytes": sum(p.stat().st_size for p in traces),
+                           "traced_replay_device_ms": device_us / 1e3,
+                           "nan_debug_raised": raised, "nan_debug_fit_replays": 0}
+    torch.cuda.synchronize()
+    launches = (fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES)
+    check(launches == (0, 0, 0), f"kernels launched on the streamed path: {launches}")
+    tmp.cleanup()
+    return report, launches
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1722,7 +2145,6 @@ def main() -> int:
         torch, tp, tconfig,
         lambda counts, seed: standin_dataset(TabularDataset, minmax_scale, counts, seed),
         fused_mlp, ba, counter, family)
-    counter.restore()
     emit({"phase": "seed_bank_family", "card": card, "mode": "strict", **bank_family,
           "training_launches_fused_b2_b3": bank_family_train,
           "replica_fast_launches": bank_family_fast,
@@ -1731,8 +2153,17 @@ def main() -> int:
           and bank_family_train == [0, 0, 0],
           f"kernels launched on the family or bank training paths (fused, B2, B3): "
           f"{family_train}, {bank_train}, {bank_family_train}")
+
+    # 11. out of core --------------------------------------------------------
+    t0 = time.perf_counter()
+    streamed, streamed_launches = streamed_phase(torch, tp, tconfig, fused_mlp, ba, counter)
+    counter.restore()
+    emit({"phase": "streamed", "card": card, **streamed,
+          "launches_fused_b2_b3": streamed_launches,
+          "wall_seconds": time.perf_counter() - t0})
     training_launches = tuple(sum(n) for n in zip(training_launches, family_train,
-                                                  bank_train, bank_family_train))
+                                                  bank_train, bank_family_train,
+                                                  streamed_launches))
 
     def attention_entry(name, replaces, launches_, entropy, library):
         t1, t2 = attn_timing["t1"], attn_timing["t2"]
@@ -1743,6 +2174,7 @@ def main() -> int:
             "source": "cvaegan_tpu_torch/csrc/block_attention.cu",
             "replaces": replaces, "launches": launches_,
             "training_launches": training_launches[2 if entropy else 1],
+            "streamed_launches": streamed_launches[2 if entropy else 1],
             "max_abs_err": attn_err[name],
             "scale10_err_over_limit": attn_stats[name]["scale10"][1],
             "shape": t1["shape"],
@@ -1767,7 +2199,8 @@ def main() -> int:
          "launches_by_path": {"cvae_gan": launches["total"],
                               "family_fast_paths": family_fast,
                               "seed_bank_replica": bank_fast,
-                              "seed_bank_family_qg_smote_replica": bank_family_fast},
+                              "seed_bank_family_qg_smote_replica": bank_family_fast,
+                              "streamed": streamed_launches[0]},
          "launches_by_variant": launches,
          "training_launches": training_launches[0],
          "max_abs_err": mlp_stats["tensor_core"]["max_abs_err"],

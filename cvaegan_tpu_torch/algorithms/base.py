@@ -19,9 +19,19 @@ warm-up of one step of each kind on the capture stream, whose effects on
 the state and the generator are undone) and replays it once per epoch;
 the epoch number is copied into a device scalar before each replay, and
 the trainer's generator is registered with the graph, so each replay
-draws fresh noise. Running the same epoch function without capture is the
-plain version: it is what runs on the CPU, and on CUDA only when `fit` is
-asked for it with `eager=True`. A failed capture raises.
+draws fresh noise. A capture reads nothing of the data on the host but
+which classes are present, so it is kept per present-class pattern and
+serves every dataset of the same shapes: `fit` and the windows of
+`fit_streamed` refill its tensors in place. Running the same epoch
+function without capture is the plain version: it is what runs on the
+CPU, and on CUDA only when `fit` is asked for it with `eager=True` or
+runs inside `utils.profiling.nan_debug()`. A failed capture raises.
+
+Out of core: `fit_streamed` streams an (x, y) CSV pair through windows of
+a fixed row count, each trained for a number of epochs with the state
+kept (`cvaegan_tpu/algorithms/base.py:347-458`). With `checkpoint_dir`
+set, `fit` and `fit_streamed` save a checkpoint after every
+`epoch_chunk` epochs (`utils/checkpoint.py`).
 
 The steps are written once for a trainer and for a seed bank of K of them
 (`algorithms/seed_bank.py`): batches are concatenated and split on the
@@ -35,6 +45,7 @@ by per-replica versions.
 from __future__ import annotations
 
 import copy
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -50,6 +61,7 @@ from cvaegan_tpu_torch.core.state import (
     adam,
     apply_eval,
     apply_train,
+    capture_graphs,
     grad_update,
     resolve_device,
 )
@@ -64,18 +76,25 @@ from cvaegan_tpu_torch.data.tabular import TabularDataset
 from cvaegan_tpu_torch.kernels import fused_mlp as fused
 from cvaegan_tpu_torch.models import mlp
 from cvaegan_tpu_torch.models.layers import forward_with, one_hot
+from cvaegan_tpu_torch.utils.checkpoint import save_checkpoint
+from cvaegan_tpu_torch.utils.profiling import nan_debug_active
 
 QUALIFIED_PATIENCE = 20
 PRINT_EVERY = 50
+#: captured epochs a trainer keeps, one per present-class pattern
+MAX_GRAPHS = 8
 
 
 def _as_arrays(dataset) -> Tuple[np.ndarray, np.ndarray]:
     if isinstance(dataset, TabularDataset):
         return dataset.tr_samples, dataset.tr_labels
+    if hasattr(dataset, "as_tuple"):  # compat.TrDataset / TeDataset
+        x, y = dataset.as_tuple()
+        return np.asarray(x, np.float32), np.asarray(y, np.int32)
     if isinstance(dataset, tuple) and len(dataset) == 2:
         return np.asarray(dataset[0], np.float32), np.asarray(dataset[1], np.int32)
-    raise TypeError("expected a TabularDataset or an (samples, labels) tuple, "
-                    f"got {type(dataset)!r}")
+    raise TypeError("expected a TabularDataset, a compat TrDataset/TeDataset or an "
+                    f"(samples, labels) tuple, got {type(dataset)!r}")
 
 
 class GenerativeTrainer:
@@ -95,7 +114,8 @@ class GenerativeTrainer:
     epoch_chunk: int = 500
     #: set False to silence the progress prints.
     verbose: bool = True
-    #: per-chunk checkpoints are ROADMAP item A19; `fit` raises if set.
+    #: a directory: `fit` and `fit_streamed` save a checkpoint there after
+    #: every `epoch_chunk` epochs (`utils/checkpoint.py`)
     checkpoint_dir = None
     conditional_sampling: bool = True
     #: the network that maps z (and labels) to samples
@@ -134,8 +154,10 @@ class GenerativeTrainer:
         #: captured epoch reads the one and writes the other
         self._epoch_t = torch.zeros((), dtype=torch.float32, device=self.device)
         self._losses_out = torch.zeros(len(self.loss_keys), device=self.device)
-        #: (key, CUDAGraph) of the captured epoch
+        #: (key, CUDAGraph) of the captured epoch last replayed, and every
+        #: capture kept, by key (one per present-class pattern)
         self._graph = None
+        self._graphs: Dict[tuple, torch.cuda.CUDAGraph] = {}
 
     # ------------------------------------------------------- subclass hooks
     def _build(self, init_generator: torch.Generator) -> Dict[str, nn.Module]:
@@ -204,9 +226,14 @@ class GenerativeTrainer:
         if self.ema_filter and "classifier" in nets:
             nets["classifier_ema"] = copy.deepcopy(nets["classifier"])
         self.optimizers = self._build_optimizers(nets)
-        self._graph = None
+        self._drop_graphs()
         self._clear_gen_caches()
         return nn.ModuleDict(nets)
+
+    def _drop_graphs(self) -> None:
+        """Forget every captured epoch (the tensors it reads changed)."""
+        self._graph = None
+        self._graphs = {}
 
     def _clear_gen_caches(self) -> None:
         """Forget the qualified-generation capacities: the state changed
@@ -347,25 +374,30 @@ class GenerativeTrainer:
         samples, labels = _as_arrays(dataset)
         self.feature_num = int(samples.shape[1])
         self.label_num = int(labels.max()) + 1 if labels.size else 0
-        index = ClassIndex.build(labels, self.label_num, device=self.device)
+        self._set_data(samples, labels, ClassIndex.build(labels, self.label_num,
+                                                         device=self.device))
+        if self.state is None:
+            self.state = self._build_state()
+
+    def _set_data(self, samples: np.ndarray, labels: np.ndarray, index: ClassIndex) -> None:
+        """Give the epoch its data. Where the shapes match the data held,
+        it is copied into the tensors a captured epoch reads, in place, and
+        the captures stay valid (their draws read the class sizes on the
+        device); else new tensors replace them and the captures go."""
         old = self._data
         if (old is not None and old["samples"].shape == samples.shape
-                and old["index"].table.shape == index.table.shape
-                and np.array_equal(old["index"].host_counts, index.host_counts)):
-            # Same shapes and class sizes: refill the tensors a captured
-            # epoch reads, in place.
-            old["samples"].copy_(torch.as_tensor(samples))
-            old["labels"].copy_(torch.as_tensor(labels))
-            old["index"].table.copy_(index.table)
+                and old["index"].table.shape == index.table.shape):
+            with torch.no_grad():
+                old["samples"].copy_(torch.as_tensor(samples))
+                old["labels"].copy_(torch.as_tensor(labels))
+            old["index"].refill(index)
         else:
             self._data = {
                 "samples": torch.as_tensor(samples, device=self.device),
                 "labels": torch.as_tensor(labels, device=self.device),
                 "index": index,
             }
-            self._graph = None
-        if self.state is None:
-            self.state = self._build_state()
+            self._drop_graphs()
 
     def load_jax_state(self, tree) -> None:
         """Take the weights of the JAX trainer of the same name (plain
@@ -412,23 +444,97 @@ class GenerativeTrainer:
         """Train for `settings.gan.epochs` epochs. On CUDA each epoch is a
         replay of one captured CUDA graph; `eager=True` runs the plain
         version instead (the epoch op by op), as the CPU always does."""
-        if self.checkpoint_dir is not None:
-            raise NotImplementedError(
-                f"{self.name}: per-chunk checkpoints are not ported yet "
-                "(ROADMAP A19)")
         self._prepare(dataset)
         self._fit_prepared(self.gan_cfg.epochs, eager=eager)
 
-    def fit_streamed(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{self.name}: out-of-core fits are not ported yet (ROADMAP A18)")
+    def fit_streamed(self, x_csv, y_csv, window_rows: int = 1_000_000,
+                     epochs_per_window: int = 50, normalize: bool = True,
+                     eager: bool = False) -> int:
+        """Out-of-core training over an (x, y) CSV pair, as the JAX
+        package's (`cvaegan_tpu/algorithms/base.py:347-458`): the pair
+        streams through windows of `window_rows` rows (`StreamingCSV`, a
+        native background reader, O(window) host memory), and each window
+        is trained for `epochs_per_window` epochs (numbered from 0 in every
+        window) with the networks and optimizers kept. Returns the number
+        of windows.
+
+        A window shorter than `window_rows` (the last) is padded by
+        repeating its rows; its class index covers the real rows only, at
+        a fixed width of `window_rows`. So every window has the shapes of
+        the first and is copied in place into the tensors the captured
+        epoch reads: one capture per present-class pattern serves them
+        all. A window may lack classes: their rounds are left out of the
+        epoch (JAX masks them, with the same result), and balanced-mode
+        labels are drawn over the present classes. The unconditional
+        family's uniform draws weigh the repeated rows of a padded window
+        twice, as in JAX.
+
+        y is one-hot (width = label_num) or one integer column (label_num
+        from the first window). `normalize`: a first pass takes each
+        column's min and max over the whole file, and every window is
+        min-max scaled by them."""
+        from cvaegan_tpu_torch.data.streaming import StreamingCSV, stream_minmax
+
+        lo = scale = None
+        if normalize:
+            lo, hi = stream_minmax(x_csv, window_rows)
+            scale = hi - lo
+            scale[scale == 0] = 1.0
+        n_windows = 0
+        end = object()  # zip() would drop the longer stream's tail quietly
+        for xw, yw in itertools.zip_longest(StreamingCSV(x_csv, window_rows),
+                                            StreamingCSV(y_csv, window_rows), fillvalue=end):
+            if xw is end or yw is end or len(xw) != len(yw):
+                nx = "exhausted" if xw is end else len(xw)
+                ny = "exhausted" if yw is end else len(yw)
+                raise ValueError(f"x/y row mismatch at window {n_windows}: x {nx} rows "
+                                 f"vs y {ny} — the CSV pair is misaligned")
+            if normalize:
+                xw = (xw - lo) / scale
+            labels = (yw.argmax(axis=1) if yw.shape[1] > 1 else yw[:, 0]).astype(np.int32)
+            if self.state is None and n_windows == 0:
+                self.feature_num = int(xw.shape[1])
+                self.label_num = (int(yw.shape[1]) if yw.shape[1] > 1
+                                  else int(labels.max()) + 1)
+            if int(xw.shape[1]) != self.feature_num:
+                raise ValueError(f"window {n_windows}: {xw.shape[1]} features, "
+                                 f"model built for {self.feature_num}")
+            if labels.size and (labels.min() < 0 or labels.max() >= self.label_num):
+                raise ValueError(
+                    f"window {n_windows} holds class id {int(labels.max())} outside "
+                    f"the model's {self.label_num} classes (integer-label corpora "
+                    "infer label_num from the FIRST window — use one-hot y or "
+                    "ensure every class appears early)")
+            counts = np.bincount(labels, minlength=self.label_num)
+            if (counts == 0).any() and self.verbose:
+                missing = np.nonzero(counts == 0)[0].tolist()
+                print(f"{self.name} window {n_windows}: classes {missing} absent — "
+                      "their class rounds are skipped this window")
+            index = ClassIndex.build(labels, self.label_num, pad_to=window_rows,
+                                     device=self.device)
+            n = len(xw)
+            if n < window_rows:  # pad by repeating the window's rows
+                reps = np.arange(window_rows - n) % n
+                xw = np.concatenate([xw, xw[reps]])
+                labels = np.concatenate([labels, labels[reps]])
+            self._set_data(np.asarray(xw, np.float32), labels, index)
+            if self.state is None:
+                self.state = self._build_state()
+            self._fit_prepared(epochs_per_window, eager=eager)
+            n_windows += 1
+        if n_windows == 0:
+            raise ValueError(f"empty corpus: {x_csv}")
+        return n_windows
 
     def _fit_prepared(self, epochs: int, eager: bool = False) -> None:
         """Run `epochs` epochs on `self._data`/`self.state`; the losses of
-        each `epoch_chunk` epochs come to the host in one transfer."""
+        each `epoch_chunk` epochs come to the host in one transfer, after
+        which a checkpoint is saved if `checkpoint_dir` is set and the
+        chunk hook runs. The plain epoch runs on the CPU, with
+        `eager=True` and inside `nan_debug()` (a graph cannot raise)."""
         self._require_state()
         chunk = max(1, min(self.epoch_chunk, epochs))
-        if eager or self.device.type != "cuda":
+        if eager or self.device.type != "cuda" or nan_debug_active():
             run = self._epoch
         else:
             run = self._captured_epoch()
@@ -449,6 +555,8 @@ class GenerativeTrainer:
                                      for j, k in enumerate(self.loss_keys))
                     print(f"{self.name} epoch {e + i}/{epochs}, {head}")
             e += n
+            if self.checkpoint_dir is not None:
+                save_checkpoint(self, self.checkpoint_dir)
             self._clear_gen_caches()
             self._on_chunk_end(e)
         self._clear_gen_caches()
@@ -475,53 +583,35 @@ class GenerativeTrainer:
             tensors += opt.tensors()
         return [*tensors, self._losses_out]
 
-    def _host_counts(self) -> np.ndarray:
-        """The class sizes of the data, on the host."""
-        return self._data["index"].host_counts
+    def _pattern(self) -> tuple:
+        """Which classes the data holds: all of it a capture reads on the
+        host."""
+        return self._data["index"].pattern()
 
     def _capture_key(self):
         cfg = self.gan_cfg
         return (id(self.state), id(self._data["samples"]), self.balanced_mode,
-                tuple(self._class_rounds()),
-                tuple(self._host_counts().ravel().tolist()),
+                tuple(self._class_rounds()), self._pattern(),
                 cfg.batch_size, cfg.d_loop_num, cfg.c_loop_num, cfg.g_loop_num,
                 tuple(sorted(self.hparams.items())), self.ema_decay)
 
     def _captured_epoch(self):
         """The replay of this trainer's captured epoch, capturing it first
-        unless a capture for the same state, data, mode, class rounds and
-        settings exists. The warm-up's effects on the state and on every
+        unless a capture for the same state, data tensors, mode, present
+        classes and settings is kept (at most `MAX_GRAPHS`, the oldest
+        dropped first). The warm-up's effects on the state and on every
         generator are undone before the capture."""
         key = self._capture_key()
-        if self._graph is not None and self._graph[0] == key:
+        if key in self._graphs:
+            self._graph = (key, self._graphs[key])
             return self._graph[1].replay
-        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
-            raise RuntimeError(
-                "this torch cannot register a generator with a CUDA graph "
-                "(CUDAGraph.register_generator_state); fit(eager=True) runs the "
-                "plain version")
         self._graph = None
-        stream = torch.cuda.Stream(device=self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        static = self._static_tensors()
-        with torch.no_grad():
-            saved = [t.detach().clone() for t in static]
-        generators = self._generators()
-        rng_states = [g.get_state() for g in generators]
-        with torch.cuda.stream(stream):
-            self._warm_up()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        with torch.no_grad():
-            for t, s in zip(static, saved):
-                t.copy_(s)
-        for g, rng_state in zip(generators, rng_states):
-            g.set_state(rng_state)
-        graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            graph.register_generator_state(g)
-        with torch.cuda.graph(graph, stream=stream):
-            self._epoch()
+        if len(self._graphs) >= MAX_GRAPHS:
+            del self._graphs[next(iter(self._graphs))]
+        (graph,) = capture_graphs([self._epoch], self._warm_up, self._static_tensors(),
+                                  self._generators(), self.device)
         self._graph = (key, graph)
+        self._graphs[key] = graph
         return graph.replay
 
     # ------------------------------------------------------------ generation

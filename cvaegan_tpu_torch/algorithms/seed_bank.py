@@ -104,9 +104,10 @@ class _Banked:
             counts = torch.clamp_min(data["counts"].gather(1, labels), 1)
             r = self.generator.randint([INT32_MAX] * self._k, (bs,))
             return self._rows(data["table"][self._replica_ids, labels, r % counts]), labels
-        highs = [max(int(c), 1) for c in self._host_counts()[:, class_id]]
-        r = self.generator.randint(highs, (bs,))
-        return self._rows(data["table"][:, class_id].gather(1, r)), self._labels(class_id, bs)
+        counts = torch.clamp_min(data["counts"][:, class_id, None], 1)
+        r = self.generator.randint([INT32_MAX] * self._k, (bs,))
+        return (self._rows(data["table"][:, class_id].gather(1, r % counts)),
+                self._labels(class_id, bs))
 
     def _sample_labels(self, class_id: Optional[int]) -> torch.Tensor:
         bs = self.gan_cfg.batch_size
@@ -119,8 +120,8 @@ class _Banked:
         r = self.generator.randint([n] * self._k, (self.gan_cfg.batch_size,))
         return self._rows(r), self._data["labels"].gather(1, r)
 
-    def _host_counts(self) -> np.ndarray:
-        return self._data["host_counts"]
+    def _pattern(self) -> tuple:
+        return tuple((self._data["host_counts"] > 0).ravel().tolist())
 
     # ----------------------------------------------------------- rounds
     def _class_rounds(self) -> List[Optional[int]]:
@@ -299,7 +300,7 @@ class SeedBank:
         bank._losses_out = torch.zeros((len(template.loss_keys), k), device=device)
         bank._replica_ids = torch.arange(k, device=device)[:, None]
         bank._data = None
-        bank._graph = None
+        bank._drop_graphs()
         return bank
 
     def _bank_data(self) -> Dict:
@@ -345,4 +346,4 @@ class SeedBank:
         bank._active = {c: [c in r for r in rounds] for c in union}
         bank._masks = {c: torch.tensor(a, device=bank.device)
                        for c, a in bank._active.items()}
-        bank._graph = None  # the old data's tensors may be freed and reused
+        bank._drop_graphs()  # the old data's tensors may be freed and reused

@@ -12,7 +12,7 @@ training steps stays valid across replays.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -151,3 +151,42 @@ def grad_update_pair(opt_a: Adam, opt_b: Adam, loss_fn: Callable[[], tuple]):
     opt_a.step(grads[:len(opt_a.params)])
     opt_b.step(grads[len(opt_a.params):])
     return loss, aux
+
+
+def capture_graphs(bodies: Sequence[Callable[[], None]], warm_up: Callable[[], None],
+                   static: Sequence[torch.Tensor], generators: Sequence[torch.Generator],
+                   device: torch.device) -> List["torch.cuda.CUDAGraph"]:
+    """Capture each of `bodies` as a CUDA graph with `generators`
+    registered, so that each replay draws on from their current states.
+    `warm_up` runs first on the capture stream (cuBLAS and the caching
+    allocator settle there); its effects on the `static` tensors (every
+    tensor the bodies update in place) and on the generators are undone
+    before the captures. Raises where this torch cannot register a
+    generator with a graph: the caller's plain version needs no capture."""
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        raise RuntimeError(
+            "this torch cannot register a generator with a CUDA graph "
+            "(CUDAGraph.register_generator_state); fit(eager=True) runs the "
+            "plain version")
+    stream = torch.cuda.Stream(device=device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.no_grad():
+        saved = [t.detach().clone() for t in static]
+    rng_states = [g.get_state() for g in generators]
+    with torch.cuda.stream(stream):
+        warm_up()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    with torch.no_grad():
+        for t, s in zip(static, saved):
+            t.copy_(s)
+    for g, rng_state in zip(generators, rng_states):
+        g.set_state(rng_state)
+    graphs = []
+    for body in bodies:
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        with torch.cuda.graph(graph, stream=stream):
+            body()
+        graphs.append(graph)
+    return graphs

@@ -5,9 +5,14 @@ The whole train set lives in device memory, and a padded `[label_num,
 max_count]` index table lets a training step gather a class-conditional
 batch with two indexing ops. Every draw comes from an explicit
 `torch.Generator`, reads no value on the host and has a fixed shape, so
-the sampling can run inside a captured CUDA graph: the class sizes a draw
-needs as a bound (`torch.randint` takes a Python int) are known on the
-host once the table is built.
+the sampling can run inside a captured CUDA graph. A row draw reads its
+class's size on the device, as the JAX package's does, so one captured
+epoch serves every window of an out-of-core fit whose tables are refilled
+in place: it draws an int32 uniformly and takes it modulo the size (the
+rule of the balanced batch, in both packages). What is read on the host
+is only which classes are present (`present`), which fixes the epoch's
+class rounds and the bound of a present-label draw; a captured epoch is
+kept per present-class pattern.
 
 Divergence note (as in the JAX package): rows are drawn with replacement
 in all cases, where the reference samples without replacement when a
@@ -58,30 +63,45 @@ class ClassIndex:
         """Ids of the classes with at least one row, in order."""
         return np.nonzero(self.host_counts > 0)[0]
 
+    def pattern(self) -> Tuple[bool, ...]:
+        """Which classes are present: all a draw takes from the host."""
+        return tuple(bool(c) for c in self.host_counts > 0)
+
+    def refill(self, other: "ClassIndex") -> None:
+        """Take `other`'s table and counts into this index's tensors, in
+        place (the tensors a captured epoch reads); shapes must match."""
+        with torch.no_grad():
+            self.table.copy_(other.table)
+            self.counts.copy_(other.counts)
+        self.host_counts = other.host_counts
+
 
 def sample_class_batch(generator: torch.Generator, index: ClassIndex,
                        samples: torch.Tensor, class_id: int,
                        batch_size: int) -> torch.Tensor:
     """`batch_size` rows of `samples` of class `class_id`, uniform with
-    replacement over the class's rows."""
-    count = max(int(index.host_counts[class_id]), 1)
-    r = torch.randint(0, count, (batch_size,), generator=generator,
+    replacement over the class's rows (an int32 draw modulo the class's
+    size, read on the device)."""
+    count = torch.clamp_min(index.counts[class_id], 1)
+    r = torch.randint(0, INT32_MAX, (batch_size,), generator=generator,
                       device=samples.device)
-    return samples[index.table[class_id][r]]
+    return samples[index.table[class_id][r % count]]
 
 
 def present_labels(generator: torch.Generator, shape: Tuple[int, ...],
                    index: ClassIndex) -> torch.Tensor:
     """Uniform int64 label draws over the classes PRESENT in `index`: over
     [0, label_num) when every class is present, else over the present
-    classes in order (an unbiased draw for any present count)."""
-    present = index.present()
+    classes in order (an unbiased draw for any present count). The number
+    present comes from the host (`pattern`), their order from the device
+    counts."""
+    n_present = sum(index.pattern())
     device = index.table.device
-    if len(present) in (0, index.label_num):
+    if n_present in (0, index.label_num):
         return torch.randint(0, index.label_num, shape, generator=generator,
                              device=device)
-    order = torch.as_tensor(present, dtype=torch.int64, device=device)
-    return order[torch.randint(0, len(present), shape, generator=generator,
+    order = torch.argsort((index.counts == 0).to(torch.int32), stable=True)
+    return order[torch.randint(0, n_present, shape, generator=generator,
                                device=device)]
 
 

@@ -5,10 +5,11 @@ value object in place of the reference's import-time module-global
 tensors (`src/datasets/__init__.py:11-44`). Arrays stay numpy on the
 host; trainers move them to their device.
 
-`load_csv` takes the pandas route where pandas is installed, else the
-standard `csv` module's (the GPU machine has no pandas); the native C++
-loader is ROADMAP item A18. pandas and sklearn are imported lazily,
-inside the functions that need them.
+`load_csv` takes the native C++ parser (`data/native_csv.py`) where a C++
+compiler exists, as the JAX package does; else the pandas route where
+pandas is installed, else the standard `csv` module's (the GPU machine
+has no pandas). pandas and sklearn are imported lazily, inside the
+functions that need them.
 """
 
 from __future__ import annotations
@@ -23,6 +24,12 @@ import numpy as np
 
 def load_csv(file_path) -> np.ndarray:
     """Headerless CSV -> float32 array, non-numeric coerced, NaN -> 0."""
+    from cvaegan_tpu_torch.data import native_csv
+
+    try:
+        return native_csv.load_csv_native(file_path)
+    except (RuntimeError, OSError):
+        pass
     try:
         import pandas as pd
     except ImportError:

@@ -17,11 +17,16 @@ Run a trainer's pipeline with
 `TRAINERS`, as the JAX package's `scripts/train_<model>.py` do (default
 `cvae_gan`); each runs the generation mode the JAX study gives it
 (`experiments/ours_multiseed.py:35-47`). The flags are the JAX CLI's
-plus `--model` and `--device`; `--streamed` (the out-of-core pipeline)
-is ROADMAP item A18 and raises. Plots need matplotlib and sklearn: where
-either is missing (the GPU machine has neither), the pipeline says so in
-one line and writes none. The `blobs` and `imbalanced` fixtures need
-sklearn; a csv dir needs neither, nor pandas.
+plus `--model` and `--device`. `--streamed` runs the out-of-core pipeline
+(`run_streamed_pipeline`) over a csv dir:
+
+    python -m cvaegan_tpu_torch.pipelines.balance --streamed --dataset <csv dir> \
+        --window-rows 1000000 --epochs-per-window 125 --clf-epochs-per-window 25
+
+Plots need matplotlib and sklearn: where either is missing (the GPU
+machine has neither), the pipeline says so in one line and writes none.
+The `blobs` and `imbalanced` fixtures need sklearn; a csv dir needs
+neither, nor pandas.
 """
 
 from __future__ import annotations
@@ -218,6 +223,104 @@ def run_balance_pipeline(
     }
 
 
+def run_streamed_pipeline(
+    algorithm_cls,
+    display_name: str,
+    data_dir,
+    window_rows: int = 1_000_000,
+    gan_epochs_per_window: int = 125,
+    clf_epochs_per_window: int = 25,
+    settings: Optional[config_lib.Settings] = None,
+    seed: Optional[int] = None,
+    balanced_mode: bool = True,
+    warm_start: bool = True,
+    device="cuda",
+):
+    """The out-of-core pipeline, as the JAX package's
+    (`cvaegan_tpu/pipelines/balance.py:205-300`); every stage streams the
+    corpus in O(window) host memory:
+
+      1. one-pass global min/max (`data.streaming.stream_minmax`);
+      2. the trainer's `fit_streamed` over x/y_train.csv (fixed-size
+         device windows, state kept, one captured epoch per present-class
+         pattern);
+      3. the downstream `Classifier.fit_streamed`, warm-started from the
+         trainer's companion classifier where it has one;
+      4. `test_streamed`, multiclass and binary, over x/y_test.csv.
+
+    `data_dir` holds x_train/y_train/x_test/y_test.csv
+    (`scripts/prepare_can_dataset.py` builds one). The in-memory
+    pipeline's generation and pickle stages are left out, as in JAX.
+    Returns a dict of the stage seconds and
+    the metrics, with the JAX package's keys."""
+    from cvaegan_tpu_torch.data.streaming import stream_minmax
+
+    settings = settings or config_lib.settings
+    seed = settings.seed if seed is None else seed
+    root = Path(data_dir)
+    for f in ("x_train.csv", "y_train.csv", "x_test.csv", "y_test.csv"):
+        if not (root / f).exists():
+            raise FileNotFoundError(
+                f"streamed pipeline: {root / f} not found — need the "
+                "x/y_{train,test}.csv corpus layout "
+                "(scripts/prepare_can_dataset.py builds one)")
+
+    rec = {"mode": "out-of-core", "window_rows": window_rows}
+    t_all = time.time()
+    lo, hi = stream_minmax(root / "x_train.csv")
+    scale = hi - lo
+    scale[scale == 0] = 1.0
+    rec["minmax_seconds"] = round(time.time() - t_all, 1)
+
+    def tf(chunk):
+        return (chunk - lo) / scale
+
+    try:
+        model = algorithm_cls(seed=seed, settings=settings, device=device,
+                              balanced_mode=balanced_mode)
+    except (TypeError, ValueError):
+        if balanced_mode:
+            raise
+        model = algorithm_cls(seed=seed, settings=settings, device=device)
+    print(f"streamed training {display_name} "
+          f"(window {window_rows} rows x {gan_epochs_per_window} epochs)...")
+    t0 = time.time()
+    rec["gan_windows"] = model.fit_streamed(
+        root / "x_train.csv", root / "y_train.csv",
+        window_rows=window_rows, epochs_per_window=gan_epochs_per_window)
+    rec["gan_fit_seconds"] = round(time.time() - t0, 1)
+
+    clf = Classifier(display_name, seed=seed, settings=settings, device=device)
+    if warm_start and model.state is not None and "classifier" in model.state:
+        clf.warm_start_from(model)
+    t0 = time.time()
+    rec["clf_windows"] = clf.fit_streamed(
+        root / "x_train.csv", root / "y_train.csv",
+        window_rows=window_rows, epochs_per_window=clf_epochs_per_window, transform=tf)
+    rec["clf_fit_seconds"] = round(time.time() - t0, 1)
+
+    t0 = time.time()
+    clf.test_streamed(root / "x_test.csv", root / "y_test.csv", transform=tf)
+    print(clf.confusion_matrix)
+    clf.print_metrics(4)
+    multiclass_metrics = dict(clf.metrics)
+    clf.test_streamed(root / "x_test.csv", root / "y_test.csv", transform=tf, binary=True)
+    print(clf.confusion_matrix)
+    clf.print_metrics(4)
+    binary_metrics = dict(clf.metrics)
+    rec["test_seconds"] = round(time.time() - t0, 1)
+    rec["total_seconds"] = round(time.time() - t_all, 1)
+    print(f"\nstreamed pipeline total: {rec['total_seconds']}s")
+
+    return {
+        "model": model,
+        "classifier": clf,
+        "multiclass_metrics": multiclass_metrics,
+        "binary_metrics": binary_metrics,
+        **rec,
+    }
+
+
 def make_cli(description: str):
     """The JAX train scripts' argparse CLI, plus `--device`."""
     import argparse
@@ -248,7 +351,11 @@ def make_cli(description: str):
                    help="filter qualified samples with an EMA of the "
                         "companion classifier")
     p.add_argument("--streamed", action="store_true",
-                   help="out-of-core pipeline: not ported yet (ROADMAP A18)")
+                   help="out-of-core pipeline: stream the corpus through "
+                        "fixed-size device windows (O(window) host memory; "
+                        "--dataset must be a csv dir). Not combinable with "
+                        "--ema-filter/--confidence-threshold/--out-dir (the "
+                        "streamed pipeline warns and ignores them)")
     p.add_argument("--window-rows", type=int, default=1_000_000,
                    help="rows per streamed device window")
     p.add_argument("--epochs-per-window", type=int, default=125,
@@ -281,11 +388,38 @@ def apply_cli(args) -> TabularDataset:
 
 def run_from_cli(algorithm_cls, display_name: str, args,
                  generation_mode: str = "qualified"):
-    """Run the balance pipeline for a parsed CLI."""
+    """Run a parsed CLI's pipeline: the balance pipeline, or with
+    `--streamed` the out-of-core one."""
+    apply_cli_settings(args)
     if args.streamed:
-        raise NotImplementedError(
-            "--streamed: the out-of-core pipeline is not ported yet (ROADMAP A18)")
-    dataset = apply_cli(args)
+        import warnings
+
+        ignored = []
+        if args.ema_filter:
+            ignored.append("--ema-filter")
+        if args.confidence_threshold is not None:
+            ignored.append("--confidence-threshold")
+        if args.out_dir not in (".", None):
+            ignored.append("--out-dir")
+        if generation_mode != "qualified":
+            ignored.append(f"generation_mode={generation_mode!r}")
+        if ignored:
+            warnings.warn("--streamed uses the out-of-core pipeline, which does not "
+                          "support: " + ", ".join(ignored) + " (ignored)", stacklevel=2)
+        path = Path(args.dataset)
+        if not path.exists():
+            path = config_lib.settings.paths.datasets / args.dataset
+        return run_streamed_pipeline(
+            algorithm_cls, display_name, path,
+            window_rows=args.window_rows,
+            gan_epochs_per_window=args.epochs_per_window,
+            clf_epochs_per_window=args.clf_epochs_per_window,
+            seed=args.seed,
+            balanced_mode=args.balanced_mode,
+            warm_start=not args.no_warm_start,
+            device=args.device,
+        )
+    dataset = load_dataset(args.dataset, seed=args.seed)
     return run_balance_pipeline(
         algorithm_cls, display_name, dataset,
         out_dir=args.out_dir,

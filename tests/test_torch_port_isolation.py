@@ -35,6 +35,9 @@ def test_import_loads_no_jax():
             "import cvaegan_tpu_torch.algorithms.qg_smote, cvaegan_tpu_torch.algorithms.tmg_gan\n"
             "import cvaegan_tpu_torch.models.quantile, cvaegan_tpu_torch.models.tmg\n"
             "from cvaegan_tpu_torch import QG_SMOTE, TMGGAN\n"
+            "import cvaegan_tpu_torch.data.streaming, cvaegan_tpu_torch.data.native_csv\n"
+            "import cvaegan_tpu_torch.utils.checkpoint, cvaegan_tpu_torch.utils.profiling\n"
+            "import cvaegan_tpu_torch.compat, cvaegan_tpu_torch.pipelines.balance\n"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=PACKAGE.parent, timeout=120)
@@ -103,7 +106,15 @@ def test_load_csv_matches_jax(tmp_path):
 def test_load_csv_without_pandas_reads_as_pandas(monkeypatch, tmp_path):
     """The GPU machine has no pandas: the standard `csv` module's route
     gives pandas' array (blank lines skipped, a short row padded, quoted and
-    non-numeric fields, NaN as 0), and a row longer than the first raises."""
+    non-numeric fields, NaN as 0), and a row longer than the first raises.
+    `load_csv` prefers the native parser, as the JAX package does; both
+    routes here are the ones taken where it is unavailable."""
+    from cvaegan_tpu_torch.data import native_csv
+
+    def unavailable(_):
+        raise RuntimeError("native CSV parser unavailable")
+
+    monkeypatch.setattr(native_csv, "load_csv_native", unavailable)
     path = tmp_path / "x.csv"
     path.write_text('1,2.5,abc\n,4,5\n\n7,8\n"9",nan,-3e2\n')
     want = ttabular.load_csv(path)

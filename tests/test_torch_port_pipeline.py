@@ -90,11 +90,16 @@ def test_cli_parses_the_jax_flags(argv):
     assert got == want
 
 
-def test_cli_device_and_unported_streamed():
-    args = tbalance.make_cli("port").parse_args(["--device", "cpu", "--streamed"])
-    assert args.device == "cpu"
-    with pytest.raises(NotImplementedError, match="A18"):
+def test_cli_device_and_unported_streamed(tmp_path):
+    """`--streamed` is ported: over a directory without the corpus's CSVs
+    it raises the JAX pipeline's `FileNotFoundError`."""
+    args = tbalance.make_cli("port").parse_args(
+        ["--device", "cpu", "--streamed", "--dataset", str(tmp_path)])
+    assert args.device == "cpu" and args.streamed
+    with pytest.raises(FileNotFoundError, match="corpus layout"):
         tbalance.run_from_cli(CVAEGAN, "CVAE_GAN", args)
+    with pytest.raises(FileNotFoundError, match="corpus layout"):
+        jbalance.run_streamed_pipeline(None, "CVAE_GAN", tmp_path)
 
 
 def test_new_modules_load_no_jax():

@@ -339,10 +339,17 @@ def test_short_fit_on_blobs(tmp_path):
     assert out.exists()
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """Only the bf16 policy (A20) is left unported: per-chunk checkpoints
+    (A19) are written during `fit`, and `fit_streamed` (A18) reads its
+    CSVs (a missing one raises as in the JAX package)."""
     port = CVAEGAN(seed=0, device="cpu", settings=_small_settings())
-    port.checkpoint_dir = "ckpt"
-    with pytest.raises(NotImplementedError, match="A19"):
-        port.fit(_data())
-    with pytest.raises(NotImplementedError, match="A18"):
-        port.fit_streamed("x.csv", "y.csv")
+    port.checkpoint_dir = tmp_path / "ckpt"
+    port.fit(_data())
+    assert (tmp_path / "ckpt" / "meta.json").exists()
+    with pytest.raises(FileNotFoundError):
+        port.fit_streamed(tmp_path / "x.csv", tmp_path / "y.csv")
+    settings = _small_settings()
+    settings.gan.compute_dtype = "bfloat16"
+    with pytest.raises(NotImplementedError, match="A20"):
+        CVAEGAN(seed=0, device="cpu", settings=settings)
