@@ -115,7 +115,27 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
      restored into a fresh trainer, whose further fit equals the
      original's bitwise (save and restore seconds); `trace()` around a
      replay writes a trace file, `nan_debug()` raises on a NaN made on the
-     card, and `fit` inside it replays nothing. No kernel launches there.
+     card, and `fit` inside it replays nothing. No kernel launches there;
+ 12. bf16: the bf16 compute policy. B2/B3 on bf16 operands (their bf16
+     instantiations) at T1 [128, 1024, 64] and the d 32 launch [128, 1024,
+     32], held to the plain version run in float32 on the same inputs
+     (widened exactly) at rtol = atol = 2e-5, and at scale 10 by
+     `float64_rule`; timed beside the plain version and
+     `scaled_dot_product_attention` on the same bf16 inputs, and beside
+     their bound (one bf16 pass of Q K^T, two TF32 passes of P V, bf16
+     inputs over HBM); the 256-wide RAIN block's forward at T1 under the
+     policy (one bf16 B3 launch, and B2 on bf16 q, k, v once: the counts
+     set to 0 just before and read just after), held to its dense path
+     under the policy and timed against its float32 forward; a strict
+     CVAE-GAN fit of 3 epochs under the policy (captured = eager bitwise,
+     every state tensor float32, finite losses, the replayed epoch's device
+     time and ops beside the float32 epoch's, a flip to float32 making a
+     second capture and keeping the first), the downstream classifier
+     warm-started from its companion staying float32, and a bank of 4
+     (captured = eager bitwise), and whether cuBLAS takes a
+     reduced-precision bf16 reduction at the fit's GEMM shapes (the flag
+     `allow_bf16_reduced_precision_reduction` flipped: reported, not
+     gated). No kernel launches on those fits.
 
 Each phase prints one JSON line; then the `kernels` line, the card's name
 and power limit as `nvidia-smi` gives them, and as the last line
@@ -169,6 +189,8 @@ RECON_ROWS = 256
 PEAKS = {"H100 SXM": (67e12, 3.35e12), "H100 PCIe": (51e12, 2.0e12),
          "H100 NVL": (60e12, 3.9e12)}
 TF32_PEAKS = {"H100 SXM": 495e12, "H100 PCIe": 378e12, "H100 NVL": 417e12}
+# bf16 on the tensor cores (dense), which bounds the bf16 kernels' Q K^T.
+BF16_PEAKS = {"H100 SXM": 989e12, "H100 PCIe": 756e12, "H100 NVL": 835e12}
 # Device cycles (~20 ms) that `cuda_ms` holds the device for while the host
 # queues a round of calls: longer than the host takes to launch 50 calls of
 # the plain fused MLP version (8 kernels each).
@@ -269,9 +291,10 @@ def ptxas_report(log: str):
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-            inst = re.search(r"block_attention_kernelILi(\d+)ELb([01])E", entry)
+            inst = re.search(r"block_attention_(bf16_)?kernelILi(\d+)ELb([01])E", entry)
             if inst:
-                entry = f"d{inst[1]}" + (" entropy" if inst[2] == "1" else "")
+                entry = (("bf16 " if inst[1] else "") + f"d{inst[2]}"
+                         + (" entropy" if inst[3] == "1" else ""))
             elif "tc_kernel" in entry:
                 entry = "tensor_core"
             elif inst := re.search(r"simt_kernelILi(\d+)E", entry):
@@ -367,6 +390,13 @@ def fused_counts(fused_mlp):
 def zero_counts(fused_mlp, ba):
     fused_mlp.TC_LAUNCHES = fused_mlp.SIMT_LAUNCHES = fused_mlp.LAUNCHES = 0
     ba.LAUNCHES = ba.ENTROPY_LAUNCHES = 0
+    ba.BF16_LAUNCHES = ba.BF16_ENTROPY_LAUNCHES = 0
+
+
+def all_counts(fused_mlp, ba):
+    """(B1, B2, B3, B2 on bf16, B3 on bf16) launches since the last zero."""
+    return (fused_mlp.LAUNCHES, ba.LAUNCHES, ba.ENTROPY_LAUNCHES, ba.BF16_LAUNCHES,
+            ba.BF16_ENTROPY_LAUNCHES)
 
 
 def mlp_vs_float64(torch, fused_mlp, rng, device):
@@ -573,9 +603,10 @@ def standin_dataset(TabularDataset, minmax_scale, counts=STANDIN_COUNTS, seed=0)
     return TabularDataset(x[:900], y[:900], x[900:], y[900:], name="blob_standin")
 
 
-def train_settings(config, epochs):
+def train_settings(config, epochs, dtype="float32"):
     settings = config.Settings()
     settings.gan.epochs = epochs
+    settings.gan.compute_dtype = dtype
     settings.classifier.epochs = CLF_EPOCHS
     return settings
 
@@ -1019,14 +1050,14 @@ def bank_replay(bank, epoch):
     return replay
 
 
-def fit_bank(torch, tconfig, cls, dss, epochs, eager=False, drawn=False):
+def fit_bank(torch, tconfig, cls, dss, epochs, eager=False, drawn=False, dtype="float32"):
     """A strict `SeedBank` of `cls` (seeds 0, 1, ...) fitted for `epochs`
-    epochs on `dss`, captured unless `eager`, from drawn Adam moments if
-    `drawn`."""
+    epochs on `dss` under the `dtype` policy, captured unless `eager`, from
+    drawn Adam moments if `drawn`."""
     from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
 
-    bank = SeedBank(cls, list(range(len(dss))), settings=train_settings(tconfig, epochs),
-                    device="cuda")
+    bank = SeedBank(cls, list(range(len(dss))),
+                    settings=train_settings(tconfig, epochs, dtype), device="cuda")
     for t, ds in zip(bank.trainers, dss):
         t.verbose = False
         if drawn:
@@ -1705,6 +1736,268 @@ def streamed_phase(torch, tp, tconfig, fused_mlp, ba, counter):
     return report, launches
 
 
+# The bf16 compute policy (`bf16`): B2/B3 on bf16 operands at the
+# long-sequence path's shapes, held to the plain version run in float32 on
+# the same (exactly widened) inputs, by the float32 kernels' rules; the
+# 256-wide RAIN block's forward under the policy; a strict CVAE-GAN fit
+# of BF16_EPOCHS epochs (captured against eager, bitwise), a bank of
+# BF16_BANK_K, and the downstream classifier warm-started from the bf16
+# companion. Block outputs against the dense path under the policy: bf16
+# keeps 8 significant bits, so the two paths' bf16 roundings differ by a
+# few 2^-9 of a value (2^-5 on the output, 2^-6 on the entropies).
+BF16_EPOCHS = 3
+BF16_BANK_K = 4
+BF16_BLOCK_RTOL = BF16_BLOCK_ATOL = 2.0 ** -5
+BF16_ENT_TOL = 2.0 ** -6
+
+
+def attention_bound_bf16(part, bh, seq, d, entropy):
+    """Least time of one call of a bf16 kernel: Q K^T (2 bh seq^2 d FLOP)
+    in one bf16 pass and P V (2 bh seq^2 d) in two TF32 passes on the
+    tensor cores, beside the entropy's 2 bh seq^2 FLOP at the float32 rate
+    (the pipes overlap), against the bytes (bf16 q, k, v read once, float32
+    out and entropy written once) over HBM."""
+    flop_rate, byte_rate = PEAKS[part]
+    half = 2 * bh * seq * seq * d
+    extra = 2 * bh * seq * seq if entropy else 0
+    nbytes = 2 * 3 * bh * seq * d + 4 * (bh * seq * d + (bh * seq if entropy else 0))
+    ops_ms = max(half / BF16_PEAKS[part] + 2 * half / TF32_PEAKS[part],
+                 extra / flop_rate) * 1e3
+    bytes_ms = nbytes / byte_rate * 1e3
+    return {"flops": 2 * half + extra, "bytes": nbytes, "ops_bound_ms": ops_ms,
+            "bytes_bound_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def bf16_attention_vs_plain(torch, ba, device):
+    """Both bf16 kernels against the plain version, which widens the same
+    bf16 inputs to float32 (exact): at T1 [128, 1024, 64] and the d 32
+    launch [128, 1024, 32] at rtol = atol = ATTN_TOL, and at inputs of
+    scale 10 by `float64_rule`. Returns {kernel: {case: [max abs err,
+    worst err / limit]}}."""
+    g = torch.Generator(device=device).manual_seed(2)
+    cases = (("t1", T1[0] * HEADS, T1[1], 64, 1.0), ("d32", 32 * HEADS, 1024, 32, 1.0),
+             ("scale10", 8, 1024, 64, 10.0))
+    stats = {"block_attention": {}, "block_attention_with_entropy": {}}
+    for group, bh, seq, d, scale in cases:
+        q, k, v = ((scale * torch.randn(bh, seq, d, generator=g, device=device)).bfloat16()
+                   for _ in range(3))
+        out = ba.block_attention(q, k, v)
+        out_e, ent = ba.block_attention_with_entropy(q, k, v)
+        torch.cuda.synchronize()
+        check(out.dtype == out_e.dtype == ent.dtype == torch.float32
+              and out.shape == (bh, seq, d) and ent.shape == (bh, seq),
+              f"bf16 block attention gave {out.dtype} {tuple(out.shape)}, {tuple(ent.shape)}")
+        ref_out, ref_ent = ba.block_attention_with_entropy_reference(q, k, v)
+        check(ref_out.dtype == torch.float32, "the plain version did not widen bf16")
+        pairs = (("block_attention", out, ref_out), ("block_attention_with_entropy", out_e,
+                                                       ref_out),
+                 ("block_attention_with_entropy", ent, ref_ent))
+        if scale == 1.0:
+            results = [(kernel, close_enough(got, ref, ATTN_TOL, ATTN_TOL))
+                       for kernel, got, ref in pairs]
+        else:
+            exact = ba.block_attention_with_entropy_reference(q.double(), k.double(),
+                                                              v.double())
+            exacts = (exact[0], exact[0], exact[1])
+            results = [(kernel, ba.float64_rule(got, ref, ex, ATTN_TOL))
+                       for (kernel, got, ref), ex in zip(pairs, exacts)]
+        for kernel, (err, ratio) in results:
+            old = stats[kernel].get(group, [0.0, 0.0])
+            stats[kernel][group] = [max(old[0], err), max(old[1], ratio)]
+    return stats
+
+
+def reduced_precision_probe(torch, F, model):
+    """Whether cuBLAS takes a reduced-precision (bf16) reduction on the
+    bf16 GEMMs of the strict CVAE-GAN's steps: each dense layer's forward
+    (and its weight gradient's shape) at the step's batches, run with
+    `allow_bf16_reduced_precision_reduction` on (torch's default) and off
+    (float32 reduction, as XLA sums); equal outputs everywhere mean no
+    split-K with a bf16 reduction was taken. The flag is restored."""
+    from cvaegan_tpu_torch.models.layers import Dense, SpectralDense
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shapes = set()
+    for net in model.state.values():
+        for m in net.modules():
+            if isinstance(m, (Dense, SpectralDense)):
+                out_f, in_f = m.weight.shape
+                for rows in (model.gan_cfg.batch_size, 2 * model.gan_cfg.batch_size):
+                    shapes.add((rows, in_f, out_f))
+                    shapes.add((out_f, rows, in_f))  # the weight gradient: dy^T x
+    equal = {}
+    for rows, k, n in sorted(shapes):
+        x = torch.randn(rows, k, generator=g, device="cuda").bfloat16()
+        w = torch.randn(n, k, generator=g, device="cuda").bfloat16()
+        outs = []
+        for allow in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = allow
+            outs.append(F.linear(x, w))
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+        equal[f"{rows}x{k}x{n}"] = bool(torch.equal(*outs))
+    return {"default_allow_bf16_reduced_precision_reduction": flag,
+            "gemms": len(equal), "all_equal": all(equal.values()),
+            "unequal": [k for k, v in equal.items() if not v]}
+
+
+def bf16_phase(torch, F, tp, tconfig, ds, make_ds, ba, fused_mlp, counter, part, card,
+               wide, x_t1, qkv_t1, f32_replay):
+    """The `bf16` phase (see the comment above BF16_EPOCHS). Returns (the
+    report, the kernels' stats and timing for the `kernels` line, the
+    path's launches (B2 bf16, B3 bf16))."""
+    from cvaegan_tpu_torch.eval.classifier import Classifier
+    from cvaegan_tpu_torch.models import layers as tl
+
+    device = torch.device("cuda:0")
+    stats = bf16_attention_vs_plain(torch, ba, device)
+    err = {kernel: max(e for group, (e, _) in groups.items() if group != "scale10")
+           for kernel, groups in stats.items()}
+    for kernel, groups in stats.items():
+        worst = max(r for _, r in groups.values())
+        check(worst <= 1.0, f"{kernel} on bf16 disagrees with its plain version ({worst})")
+
+    # the path: the 256-wide block's forward under the policy (bf16 B3) and
+    # B2 on the bf16 q, k, v of T1, counts zeroed just before
+    q16, k16, v16 = (t.bfloat16() for t in qkv_t1)
+    zero_counts(fused_mlp, ba)
+    with torch.no_grad(), tl.dtype_override(torch.bfloat16):
+        out, row_ent = wide(x_t1)
+        b2_out = ba.block_attention(q16, k16, v16)
+    torch.cuda.synchronize()
+    path_launches = all_counts(fused_mlp, ba)
+    check(path_launches == (0, 0, 0, 1, 1),
+          f"bf16 path launches (B1, B2, B3, B2 bf16, B3 bf16): {path_launches}")
+    check(out.dtype == torch.float32 and row_ent.value.dtype == torch.float32,
+          f"bf16 block gave {out.dtype}, entropy {row_ent.value.dtype}")
+    wide.attention.use_kernel = False
+    with torch.no_grad(), tl.dtype_override(torch.bfloat16):
+        dense_out, probs = wide(x_t1)
+        dense_ent = -(probs.float() * torch.log(probs.float() + 1e-12)).sum(-1)
+    del probs
+    wide.attention.use_kernel = None
+    block = {"out": close_enough(out.float(), dense_out.float(), BF16_BLOCK_RTOL,
+                                 BF16_BLOCK_ATOL),
+             "entropy": close_enough(row_ent.value, dense_ent, BF16_ENT_TOL, BF16_ENT_TOL),
+             "b2_t1": close_enough(b2_out, ba.block_attention_reference(q16, k16, v16),
+                                   ATTN_TOL, ATTN_TOL)}
+    check(max(r for _, r in block.values()) <= 1.0, f"bf16 block paths disagree: {block}")
+
+    def forward(dtype):
+        def run():
+            with torch.no_grad(), tl.dtype_override(dtype):
+                wide(x_t1)
+        return run
+
+    (f32_block_ms, bf16_block_ms), block_rounds = cuda_ms(
+        torch, [forward(torch.float32), forward(torch.bfloat16)], iters=10, reps=4, warmup=2)
+
+    # kernel timing on bf16 inputs: T1 (B2, B3, plain, SDPA) and d 32 (B3)
+    timing = {}
+    gd = torch.Generator(device=device).manual_seed(3)
+    for name, bh, d in (("t1", T1[0] * HEADS, 64), ("d32", 32 * HEADS, 32)):
+        q, k, v = (torch.randn(bh, 1024, d, generator=gd, device=device).bfloat16()
+                   for _ in range(3))
+        q4, k4, v4 = q[None], k[None], v[None]
+        fns = [lambda: ba.block_attention(q, k, v),
+               lambda: ba.block_attention_with_entropy(q, k, v),
+               lambda: ba.block_attention_reference(q, k, v),
+               lambda: ba.block_attention_with_entropy_reference(q, k, v),
+               lambda: F.scaled_dot_product_attention(q4, k4, v4)]
+        with torch.no_grad():
+            times, rounds = cuda_ms(torch, fns, iters=20, reps=6, warmup=3)
+            sdpa_dtype = str(F.scaled_dot_product_attention(q4, k4, v4).dtype)
+        keys = ("b2_ms", "b3_ms", "b2_plain_ms", "b3_plain_ms", "sdpa_ms")
+        timing[name] = {"shape": [bh, 1024, d], **dict(zip(keys, times)),
+                        "rounds": dict(zip(keys, rounds)), "sdpa_output_dtype": sdpa_dtype,
+                        "b2_bound": attention_bound_bf16(part, bh, 1024, d, False),
+                        "b3_bound": attention_bound_bf16(part, bh, 1024, d, True)}
+
+    # training under the policy: no kernel launches; captured = eager bitwise
+    def fitted(epochs, eager=False):
+        m = tp.CVAEGAN(seed=0, device="cuda",
+                       settings=train_settings(tconfig, epochs, "bfloat16"))
+        m.verbose = False
+        m.fit(ds, eager=eager)
+        torch.cuda.synchronize()
+        return m
+
+    zero_counts(fused_mlp, ba)
+    counter.reset()
+    captured = fitted(BF16_EPOCHS)
+    calls = (counter.replays, counter.epochs)
+    eager = fitted(BF16_EPOCHS, eager=True)
+    fit_err, fit_ratio, bitwise = compare_fits(torch, captured, eager)
+    check(calls == (BF16_EPOCHS, 1), f"bf16 fit: (replays, epoch calls) {calls}")
+    check(bitwise, f"bf16 captured and eager fits differ ({fit_err})")
+    dtypes = sorted({str(t.dtype) for t in state_tensors(captured)})
+    check(set(dtypes) <= {"torch.float32", "torch.int32"}, f"bf16 fit state dtypes {dtypes}")
+    check(all(np.isfinite(v).all() for v in captured.loss_history.values()),
+          "bf16 fit: non-finite losses")
+    key, graph = captured._graph
+    check(key[0] == "bfloat16", f"bf16 fit captured under {key[0]}")
+
+    def bf16_replay():
+        captured._epoch_t.fill_(BF16_EPOCHS)
+        graph.replay()
+
+    (f32_ms, bf16_ms), replay_rounds = cuda_ms(torch, [f32_replay, bf16_replay], iters=10,
+                                               reps=4, warmup=2)
+    (bf16_rate,) = samples_per_s(torch, [bf16_replay], 1, iters=10, reps=2)
+    replay_break = breakdown(torch, bf16_replay, 1e3 / bf16_rate, calls=2, top=6)
+
+    split_k = reduced_precision_probe(torch, F, captured)
+
+    captured.gan_cfg.compute_dtype = "float32"  # the flip: a second capture
+    captured.fit(ds)
+    torch.cuda.synchronize()
+    check(captured._graph[0][0] == "float32" and len(captured._graphs) == 2
+          and captured._graphs[key] is graph, "flipping the policy did not recapture")
+    captured.gan_cfg.compute_dtype = "bfloat16"
+
+    clf = Classifier("bf16_companion", seed=0,
+                     settings=train_settings(tconfig, 1, "bfloat16"), device="cuda")
+    clf.cfg.epochs = 2
+    clf.warm_start_from(eager)
+    clf.fit(ds)
+    probs = clf.predict(ds.te_samples, use_prob=True)
+    clf_dtypes = {str(p.dtype) for p in clf.module.parameters()}
+    check(clf_dtypes == {"torch.float32"} and probs.dtype == np.float32,
+          f"the downstream classifier left float32: {clf_dtypes}, {probs.dtype}")
+
+    banks = [fit_bank(torch, tconfig, tp.CVAEGAN,
+                      [make_ds(mix, s) for s, mix in enumerate(BANK_MIXES[:BF16_BANK_K])],
+                      2, eager=eager_bank, dtype="bfloat16")
+             for eager_bank in (False, True)]
+    bank_bitwise = all(compare_fits(torch, a, b)[2]
+                       for a, b in zip(banks[0].trainers, banks[1].trainers))
+    check(bank_bitwise, "bf16 bank: captured and eager epochs differ")
+    torch.cuda.synchronize()
+    training_launches = all_counts(fused_mlp, ba)
+    check(training_launches == (0, 0, 0, 0, 0),
+          f"kernels launched on the bf16 training paths: {training_launches}")
+    report = {
+        "kernels_vs_plain": stats, "rtol": ATTN_TOL, "atol": ATTN_TOL,
+        "path_launches_b1_b2_b3_b2bf16_b3bf16": path_launches,
+        "block_t1": {"x": list(x_t1.shape), "vs_dense_bf16": block,
+                     "f32_forward_ms": f32_block_ms, "bf16_forward_ms": bf16_block_ms,
+                     "rounds": block_rounds},
+        "timing": timing,
+        "fit": {"epochs": BF16_EPOCHS, "captured_eq_eager_bitwise": bitwise,
+                "state_dtypes": dtypes,
+                "epoch0": {k: float(v[0]) for k, v in captured.loss_history.items()},
+                "replay_device_ms": {"float32": f32_ms, "bfloat16": bf16_ms},
+                "replay_rounds": {"float32": replay_rounds[0], "bfloat16": replay_rounds[1]},
+                "bf16_replay_breakdown": replay_break,
+                "policy_flip_recaptured": True},
+        "bf16_reduced_precision_reduction_probe": split_k,
+        "classifier_dtypes": sorted(clf_dtypes),
+        "bank": {"k": BF16_BANK_K, "epochs": 2, "captured_eq_eager_bitwise": bank_bitwise},
+        "training_launches": training_launches}
+    return report, err, stats, timing, path_launches
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -2157,9 +2450,18 @@ def main() -> int:
     # 11. out of core --------------------------------------------------------
     t0 = time.perf_counter()
     streamed, streamed_launches = streamed_phase(torch, tp, tconfig, fused_mlp, ba, counter)
-    counter.restore()
     emit({"phase": "streamed", "card": card, **streamed,
           "launches_fused_b2_b3": streamed_launches,
+          "wall_seconds": time.perf_counter() - t0})
+
+    # 12. the bf16 policy ----------------------------------------------------
+    t0 = time.perf_counter()
+    bf16, bf16_err, bf16_stats, bf16_timing, bf16_launches = bf16_phase(
+        torch, F, tp, tconfig, ds,
+        lambda counts, seed: standin_dataset(TabularDataset, minmax_scale, counts, seed),
+        ba, fused_mlp, counter, part, card, wide, xs["t1"], qkv_t1, replay_ms["strict"][0])
+    counter.restore()
+    emit({"phase": "bf16", "card": card, "peaks_of": part, **bf16,
           "wall_seconds": time.perf_counter() - t0})
     training_launches = tuple(sum(n) for n in zip(training_launches, family_train,
                                                   bank_train, bank_family_train,
@@ -2184,6 +2486,26 @@ def main() -> int:
             "t2": {"shape": t2["shape"], "ms": t2[f"{key}_ms"],
                    "plain_ms": t2[f"{key}_plain_ms"], "bound_ms": bound2["bound_ms"],
                    "library_ms": t2["sdpa_ms"] if library else None}}
+
+    def bf16_entry(name, replaces, launches_, entropy, library):
+        key = "b3" if entropy else "b2"
+        t1, d32 = bf16_timing["t1"], bf16_timing["d32"]
+        bound = t1[f"{key}_bound"]
+        return {
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": "cvaegan_tpu_torch/csrc/block_attention.cu",
+            "replaces": replaces, "launches": launches_,
+            "training_launches": bf16["training_launches"][4 if entropy else 3],
+            "max_abs_err": bf16_err[name],
+            "scale10_err_over_limit": bf16_stats[name]["scale10"][1],
+            "inputs": "bfloat16", "shape": t1["shape"],
+            "ms": t1[f"{key}_ms"], "plain_ms": t1[f"{key}_plain_ms"],
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": t1["sdpa_ms"] if library else None,
+            "d32": {"shape": d32["shape"], "ms": d32[f"{key}_ms"],
+                    "plain_ms": d32[f"{key}_plain_ms"],
+                    "bound_ms": d32[f"{key}_bound"]["bound_ms"],
+                    "library_ms": d32["sdpa_ms"] if library else None}}
 
     b3_entry = attention_entry("block_attention_with_entropy",
                                "cvaegan_tpu/kernels/block_attention.py:56",
@@ -2213,6 +2535,10 @@ def main() -> int:
         attention_entry("block_attention", "cvaegan_tpu/kernels/block_attention.py:30",
                         long_launches[1], entropy=False, library=True),
         b3_entry,
+        bf16_entry("block_attention", "cvaegan_tpu/kernels/block_attention.py:30",
+                   bf16_launches[3], entropy=False, library=True),
+        bf16_entry("block_attention_with_entropy", "cvaegan_tpu/kernels/block_attention.py:56",
+                   bf16_launches[4], entropy=True, library=False),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -27,6 +27,15 @@ function without capture is the plain version: it is what runs on the
 CPU, and on CUDA only when `fit` is asked for it with `eager=True` or
 runs inside `utils.profiling.nan_debug()`. A failed capture raises.
 
+Compute policy: a trainer runs its fits and its generation under its
+settings' `gan.compute_dtype` (`models.layers.policy`, entered by
+`under_policy`): "float32", or "bfloat16" as in the JAX package
+(`cvaegan_tpu/core/config.py:35-51`). Parameters, optimizer state and
+losses stay float32, a capture and the generation caches are kept per
+policy (`_policy_key`), and generation returns float32 arrays.
+`generate_samples_fast` runs the float32 fused kernel under either
+policy, as JAX's does.
+
 Out of core: `fit_streamed` streams an (x, y) CSV pair through windows of
 a fixed row count, each trained for a number of epochs with the state
 kept (`cvaegan_tpu/algorithms/base.py:347-458`). With `checkpoint_dir`
@@ -45,6 +54,7 @@ by per-replica versions.
 from __future__ import annotations
 
 import copy
+import functools
 import itertools
 from typing import Dict, List, Optional, Tuple
 
@@ -74,7 +84,7 @@ from cvaegan_tpu_torch.data.sampler import (
 )
 from cvaegan_tpu_torch.data.tabular import TabularDataset
 from cvaegan_tpu_torch.kernels import fused_mlp as fused
-from cvaegan_tpu_torch.models import mlp
+from cvaegan_tpu_torch.models import layers, mlp
 from cvaegan_tpu_torch.models.layers import forward_with, one_hot
 from cvaegan_tpu_torch.utils.checkpoint import save_checkpoint
 from cvaegan_tpu_torch.utils.profiling import nan_debug_active
@@ -83,6 +93,17 @@ QUALIFIED_PATIENCE = 20
 PRINT_EVERY = 50
 #: captured epochs a trainer keeps, one per present-class pattern
 MAX_GRAPHS = 8
+
+
+def under_policy(method):
+    """Run a trainer method under the trainer's compute policy
+    (`layers.policy(self.gan_cfg)`); a `layers.dtype_override` block
+    around the call still wins."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with layers.policy(self.gan_cfg):
+            return method(self, *args, **kwargs)
+    return wrapped
 
 
 def _as_arrays(dataset) -> Tuple[np.ndarray, np.ndarray]:
@@ -147,9 +168,9 @@ class GenerativeTrainer:
         self.optimizers: Dict[str, Adam] = {}
         self._data: Optional[Dict] = None
         self.loss_history: Dict[str, list] = {k: [] for k in self.loss_keys}
-        #: candidate capacities of qualified generation since the state
-        #: last changed (see `generate_qualified_samples`)
-        self._qualified_caps: set = set()
+        #: generation caches since the state last changed, one namespace
+        #: per policy (`_gen_cache`): the qualified candidate capacities
+        self._gen_caches: Dict[str, dict] = {}
         #: the epoch number and the epoch's losses, on the device: a
         #: captured epoch reads the one and writes the other
         self._epoch_t = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -235,11 +256,25 @@ class GenerativeTrainer:
         self._graph = None
         self._graphs = {}
 
+    @staticmethod
+    def _policy_key() -> str:
+        """The compute dtype in force, as a key of captures and caches
+        (`cvaegan_tpu/algorithms/base.py:258-271`)."""
+        return str(layers.compute_dtype()).removeprefix("torch.")
+
+    @property
+    def _gen_cache(self) -> dict:
+        """The generation cache of the policy in force: flipping the policy
+        starts another namespace and keeps the old one, as the JAX package
+        keys its generation programs (`cvaegan_tpu/algorithms/base.py:
+        115-130`)."""
+        return self._gen_caches.setdefault(self._policy_key(), {})
+
     def _clear_gen_caches(self) -> None:
-        """Forget the qualified-generation capacities: the state changed
-        (a fit ended, or the state was built, loaded or handed over by a
-        seed bank), as the JAX package drops its generation programs."""
-        self._qualified_caps.clear()
+        """Forget every policy's generation cache: the state changed (a fit
+        ended, or the state was built, loaded or handed over by a seed
+        bank), as the JAX package drops its generation programs."""
+        self._gen_caches.clear()
 
     def _filter_state(self, state):
         """State used by the qualified-sample FILTER: the EMA classifier
@@ -526,6 +561,7 @@ class GenerativeTrainer:
             raise ValueError(f"empty corpus: {x_csv}")
         return n_windows
 
+    @under_policy
     def _fit_prepared(self, epochs: int, eager: bool = False) -> None:
         """Run `epochs` epochs on `self._data`/`self.state`; the losses of
         each `epoch_chunk` epochs come to the host in one transfer, after
@@ -590,15 +626,16 @@ class GenerativeTrainer:
 
     def _capture_key(self):
         cfg = self.gan_cfg
-        return (id(self.state), id(self._data["samples"]), self.balanced_mode,
+        return (self._policy_key(), id(self.state), id(self._data["samples"]),
+                self.balanced_mode,
                 tuple(self._class_rounds()), self._pattern(),
                 cfg.batch_size, cfg.d_loop_num, cfg.c_loop_num, cfg.g_loop_num,
                 tuple(sorted(self.hparams.items())), self.ema_decay)
 
     def _captured_epoch(self):
         """The replay of this trainer's captured epoch, capturing it first
-        unless a capture for the same state, data tensors, mode, present
-        classes and settings is kept (at most `MAX_GRAPHS`, the oldest
+        unless a capture for the same policy, state, data tensors, mode,
+        present classes and settings is kept (at most `MAX_GRAPHS`, the oldest
         dropped first). The warm-up's effects on the state and on every
         generator are undone before the capture."""
         key = self._capture_key()
@@ -616,6 +653,7 @@ class GenerativeTrainer:
 
     # ------------------------------------------------------------ generation
     @torch.no_grad()
+    @under_policy
     def generate_samples(self, target_label: int, num: int) -> np.ndarray:
         """Sample `num` rows of class `target_label` from the prior
         (reference `src/cvae_gan.py:339-345`), as float32 numpy."""
@@ -629,8 +667,9 @@ class GenerativeTrainer:
         """Prior sampling through the fused generator kernel
         (`kernels/fused_mlp.py`): eval-mode BatchNorm folded into the
         matmuls, all four layers in one launch. The final activation is
-        the generator's own. Only available for the standard conditional
-        MLP generator; raises NotImplementedError otherwise."""
+        the generator's own. The kernel and its inputs are float32 under
+        either policy. Only available for the standard conditional MLP
+        generator; raises NotImplementedError otherwise."""
         self._require_state()
         if not self.conditional_sampling:
             raise NotImplementedError(
@@ -649,6 +688,7 @@ class GenerativeTrainer:
         return out.cpu().numpy()
 
     @torch.no_grad()
+    @under_policy
     def generate_qualified_samples(
         self, target_label: int, num: int,
         confidence_threshold: Optional[float] = None,
@@ -669,14 +709,15 @@ class GenerativeTrainer:
             confidence_threshold = self.hparams.get("confidence_threshold", 0.5)
         if num <= 0:
             return np.empty((0, self.feature_num), np.float32)
-        fits = [c for c in self._qualified_caps if c >= num]
+        caps = self._gen_cache.setdefault("qualified_caps", set())
+        fits = [c for c in caps if c >= num]
         if fits:
             cap = min(fits)
         else:
             cap = 256
             while cap < num:
                 cap *= 2
-            self._qualified_caps.add(cap)
+            caps.add(cap)
         return self._filtered(target_label, num, confidence_threshold, min(4096, cap),
                               self._prior)
 
@@ -711,6 +752,7 @@ class GenerativeTrainer:
         raise NotImplementedError(f"{self.name} has no encoder")
 
     @torch.no_grad()
+    @under_policy
     def _reconstruct(self, samples, labels) -> np.ndarray:
         """Encode with reparameterisation, then decode; `labels` is None for
         the unconditional family."""
@@ -721,7 +763,7 @@ class GenerativeTrainer:
         mu, log_var = apply_eval(self.state["encoder"], x, y)
         z = mlp.reparameterize(mu, log_var, self.generator)
         out, _ = apply_eval(self.state[self.decoder_name], z, y)
-        return out.cpu().numpy()
+        return out.to(torch.float32).cpu().numpy()
 
     # ---------------------------------------------------------- diagnostics
     def get_feature_importance(self, net: str = "discriminator"):
@@ -799,6 +841,7 @@ class UnconditionalTrainer(GenerativeTrainer):
         return x
 
     @torch.no_grad()
+    @under_policy
     def generate_samples(self, num: int) -> np.ndarray:  # type: ignore[override]
         """Sample `num` rows from the prior (reference
         `src/gan.py:generate_samples`), as float32 numpy."""

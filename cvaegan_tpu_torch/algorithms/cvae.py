@@ -58,7 +58,7 @@ class CVAE(GenerativeTrainer):
 
         def loss_fn():
             mu, log_var = enc(x_real, y)
-            x_recon, _ = gen(mu + eps * torch.exp(0.5 * log_var), y)
+            x_recon, _ = gen(mu + eps.to(log_var.dtype) * torch.exp(0.5 * log_var), y)
             logits = clf(x_recon, self.generator)
             parts = {"recon_loss": losses.mse(x_recon, x_real),
                      "kl_loss": losses.kl_standard_normal(mu, log_var),

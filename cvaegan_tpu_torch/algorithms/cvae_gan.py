@@ -70,7 +70,9 @@ class CVAEGAN(GenerativeTrainer):
 
         def loss_fn():
             mu, log_var = enc(x_real, y)
-            z_enc = mu + eps * torch.exp(0.5 * log_var)
+            # eps in the encoder's output dtype, as JAX's `reparameterize`
+            # draws it (bf16 under the bf16 policy)
+            z_enc = mu + eps.to(log_var.dtype) * torch.exp(0.5 * log_var)
             x_recon, _ = gen(z_enc, y)
             x_fake, _ = gen(z_prior, y)
             d_fake, _ = dis(x_fake, y, self.generator)

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from cvaegan_tpu_torch import convert
-from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
+from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer, under_policy
 from cvaegan_tpu_torch.core import losses
 from cvaegan_tpu_torch.core.state import (
     apply_eval,
@@ -180,6 +180,7 @@ class QG_SMOTE(GenerativeTrainer):
         return sample_from_quantiles(quantiles, self._alpha(num))
 
     @torch.no_grad()
+    @under_policy
     def generate_samples(self, target_label: int, num: int,
                          method: str = "quantile") -> np.ndarray:
         """method='quantile' decodes z interpolated between the encoder's
@@ -193,6 +194,7 @@ class QG_SMOTE(GenerativeTrainer):
         return out.to(torch.float32).cpu().numpy()
 
     @torch.no_grad()
+    @under_policy
     def generate_qualified_samples(self, target_label: int, num: int,
                                    confidence_threshold: Optional[float] = None,
                                    method: str = "quantile") -> np.ndarray:
@@ -212,6 +214,7 @@ class QG_SMOTE(GenerativeTrainer):
                               lambda cand: self._quantile_latents(target_label, cand))
 
     @torch.no_grad()
+    @under_policy
     def analyze_quantiles(self, target_label: int,
                           num_samples: int = 100) -> Dict[str, np.ndarray]:
         """Statistics over the first min(num_samples, count) rows of the
@@ -221,7 +224,7 @@ class QG_SMOTE(GenerativeTrainer):
         index = self._data["index"]
         n = min(num_samples, max(int(index.host_counts[target_label]), 1))
         x = self._data["samples"][index.table[target_label][:n].long()]
-        q = apply_eval(self.state["encoder"], x, self._labels(target_label, n))
+        q = apply_eval(self.state["encoder"], x, self._labels(target_label, n)).float()
         return {"mean": q.mean(0).cpu().numpy(),
                 "std": q.std(0, unbiased=False).cpu().numpy(),
                 "min": q.amin(0).cpu().numpy(),

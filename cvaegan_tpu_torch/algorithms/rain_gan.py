@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from cvaegan_tpu_torch import convert
-from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
+from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer, under_policy
 from cvaegan_tpu_torch.core import losses
 from cvaegan_tpu_torch.core.state import (
     apply_eval,
@@ -120,7 +120,7 @@ class RAIN_GAN(GenerativeTrainer):
 
         def loss_fn():
             (mu, log_var), e_attn = enc(x_real, y)
-            z_enc = mu + eps * torch.exp(0.5 * log_var)
+            z_enc = mu + eps.to(log_var.dtype) * torch.exp(0.5 * log_var)
             x_recon, _ = gen(z_enc, y)
             x_fake, g_attn = gen(z_prior, y)
             d_fake, _ = dis(x_fake, y)
@@ -214,6 +214,7 @@ class RAIN_GAN(GenerativeTrainer):
                 torch.as_tensor(np.asarray(labels, np.int64), device=self.device))
 
     @torch.no_grad()
+    @under_policy
     def reconstruct_samples(self, samples, labels) -> np.ndarray:
         """Encode with reparameterisation (z_enc), then decode (reference
         `src/rain_gan.py:456-480`)."""
@@ -221,8 +222,9 @@ class RAIN_GAN(GenerativeTrainer):
         x, y = self._inputs(samples, labels)
         (mu, log_var), _ = apply_eval(self.state["encoder"], x, y)
         z = reparameterize(mu, log_var, self.generator)
-        return self._generator_forward(self.state, z, y).cpu().numpy()
+        return self._generator_forward(self.state, z, y).float().cpu().numpy()
 
+    @under_policy
     def visualize_attention(self, samples, labels) -> Dict[str, np.ndarray]:
         """Eval-mode encoder and classifier attention maps `[n, heads, 1,
         1]` (reference `src/rain_gan.py:482-502`)."""
@@ -230,5 +232,5 @@ class RAIN_GAN(GenerativeTrainer):
         x, y = self._inputs(samples, labels)
         _, enc_attn = apply_eval(self.state["encoder"], x, y)
         _, clf_attn = apply_eval(self.state["classifier"], x)
-        return {"encoder_attention": enc_attn.cpu().numpy(),
-                "classifier_attention": clf_attn.cpu().numpy()}
+        return {"encoder_attention": enc_attn.float().cpu().numpy(),
+                "classifier_attention": clf_attn.float().cpu().numpy()}

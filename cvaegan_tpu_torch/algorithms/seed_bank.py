@@ -295,7 +295,7 @@ class SeedBank:
             for name, opt in template.optimizers.items()}
         bank.generator = banked.ReplicaGenerators([t.generator for t in trainers], device)
         bank.loss_history = {key: [] for key in template.loss_keys}
-        bank._qualified_caps = set()
+        bank._gen_caches = {}
         bank._epoch_t = torch.zeros((), dtype=torch.float32, device=device)
         bank._losses_out = torch.zeros((len(template.loss_keys), k), device=device)
         bank._replica_ids = torch.arange(k, device=device)[:, None]

@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from cvaegan_tpu_torch import convert
-from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
+from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer, under_policy
 from cvaegan_tpu_torch.core import config as config_lib
 from cvaegan_tpu_torch.core import losses
 from cvaegan_tpu_torch.core.state import (
@@ -50,6 +50,7 @@ from cvaegan_tpu_torch.core.state import (
     grad_update,
     init_net,
 )
+from cvaegan_tpu_torch.models.layers import widened
 from cvaegan_tpu_torch.models.tmg import TMGCD, TMGGenerator
 
 #: samples per generator in the diversity step (`src/tmg_gan.py:120-146`)
@@ -83,9 +84,6 @@ class TMGGAN(GenerativeTrainer):
                 "TMG-GAN has one generator per class: its training is "
                 "per class by construction, so balanced_mode does not apply")
         super().__init__(seed=seed, settings=settings, device=device)
-        #: the power-of-two candidate batch of qualified sampling, which
-        #: never shrinks until the state changes
-        self._qualified_cand = 0
         #: draws the chunk-end scatters, apart from the training stream
         self._snapshot_generator = torch.Generator(device=self.device).manual_seed(self.seed)
 
@@ -104,10 +102,6 @@ class TMGGAN(GenerativeTrainer):
             opts[f"gens.{i}"] = adam(gen, cfg.g_lr, cfg.adam_b1, cfg.adam_b2)
         return opts
 
-    def _clear_gen_caches(self) -> None:
-        super()._clear_gen_caches()
-        self._qualified_cand = 0
-
     # ------------------------------------------------------------- steps
     def _cd_step(self, x_real, y, z, class_id: int) -> torch.Tensor:
         """CD update on `(E[D(G)] - E[D(x)]) / 2 + CE(softmax probs of the
@@ -120,7 +114,7 @@ class TMGGAN(GenerativeTrainer):
 
         def loss_fn():
             scores, probs, _ = cd(torch.cat([x_real, x_fake], dim=-2), self.generator)
-            s_real, s_fake = scores.chunk(2, dim=-2)
+            s_real, s_fake = widened(scores).chunk(2, dim=-2)
             d_loss = (s_fake.mean((-2, -1)) - s_real.mean((-2, -1))) / 2.0
             # CE over softmax outputs: the reference's quirk, kept.
             real_probs = probs[..., : x_real.shape[-2], :]
@@ -144,7 +138,7 @@ class TMGGAN(GenerativeTrainer):
             x_fake, _ = gen(z)
             _, _, hidden_real = cd(x_real, self.generator)
             s_fake, probs_fake, hidden_fake = cd(x_fake, self.generator)
-            loss = (-s_fake.mean((-2, -1)) + losses.cross_entropy(probs_fake, y)
+            loss = (-widened(s_fake).mean((-2, -1)) + losses.cross_entropy(probs_fake, y)
                     - gate * losses.cosine_similarity(hidden_real, hidden_fake))
             return loss, None
 
@@ -163,6 +157,7 @@ class TMGGAN(GenerativeTrainer):
         opts = [self.optimizers[f"gens.{i}"] for i in range(len(gens))]
         hidden = torch.stack([gen(z.select(-3, i))[1] for i, gen in enumerate(gens)],
                              dim=-3)
+        hidden = widened(hidden)  # as JAX's `hidden.astype(jnp.float32)`
         hn = hidden / (torch.linalg.vector_norm(hidden, dim=-1, keepdim=True) + 1e-8)
         cos = torch.einsum("...ikd,...jkd->...ijk", hn, hn).mean(-1)
         n = len(gens)
@@ -259,6 +254,7 @@ class TMGGAN(GenerativeTrainer):
         return probs
 
     @torch.no_grad()
+    @under_policy
     def generate_qualified_samples(self, target_label: int, num: int) -> np.ndarray:
         """Rows whose CD argmax is the class, from candidate batches of the
         smallest power of two >= min(4096, 2 num), at least 256 and never
@@ -271,7 +267,8 @@ class TMGGAN(GenerativeTrainer):
         cand = 256
         while cand < min(4096, 2 * num):
             cand *= 2
-        cand = self._qualified_cand = max(cand, self._qualified_cand)
+        cand = self._gen_cache["qualified_cand"] = max(
+            cand, self._gen_cache.get("qualified_cand", 0))
         labels = self._labels(target_label, cand)
         kept, count, empty = [], 0, 0
         while count < num:

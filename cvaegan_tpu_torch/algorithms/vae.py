@@ -59,7 +59,7 @@ class VAE(UnconditionalTrainer):
 
         def loss_fn():
             mu, log_var = enc(x_real)
-            x_recon, _ = dec(mu + eps * torch.exp(0.5 * log_var))
+            x_recon, _ = dec(mu + eps.to(log_var.dtype) * torch.exp(0.5 * log_var))
             parts = {"recon_loss": losses.mse(x_recon, x_real),
                      "kl_loss": losses.kl_standard_normal(mu, log_var)}
             return (hp["lambda_recon"] * parts["recon_loss"]

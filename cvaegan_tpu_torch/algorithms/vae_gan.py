@@ -58,7 +58,7 @@ class VAEGAN(UnconditionalTrainer):
 
         def loss_fn():
             mu, log_var = enc(x_real)
-            x_recon, _ = gen(mu + eps * torch.exp(0.5 * log_var))
+            x_recon, _ = gen(mu + eps.to(log_var.dtype) * torch.exp(0.5 * log_var))
             x_fake, _ = gen(z_prior)
             d_fake, _ = dis(x_fake, None, self.generator)
             parts = {"recon_loss": losses.mse(x_recon, x_real),

@@ -1,9 +1,9 @@
 """Typed configuration for the PyTorch port.
 
 A copy of `cvaegan_tpu/core/config.py` with identical defaults (the port
-imports nothing of the JAX package). `GanConfig.compute_dtype` stays a
-field so that settings objects carry across, but the port runs float32
-only: `check_compute_dtype` rejects anything else.
+imports nothing of the JAX package). `GanConfig.compute_dtype` is the
+compute policy, "float32" or "bfloat16" (`check_compute_dtype` rejects
+anything else); `models/layers.py` applies it.
 """
 
 from __future__ import annotations
@@ -29,7 +29,12 @@ class GanConfig:
     c_loop_num: int = 5
     adam_b1: float = 0.5
     adam_b2: float = 0.999
-    # "float32" only in the port; the bfloat16 policy is ROADMAP item A20.
+    # Compute policy, as in the JAX package: "float32" (the default) or
+    # "bfloat16", under which matmuls and activations run in bf16 while
+    # parameters, Adam state, normalisation statistics, spectral sigma and
+    # every loss stay float32 (`models/layers.py::compute_dtype`). A
+    # trainer reads it from its own settings; the downstream classifier
+    # stays float32 whatever it says.
     compute_dtype: str = "float32"
 
 
@@ -160,9 +165,11 @@ def turn_on_test_mode() -> None:
     settings.classifier.epochs = 1
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 def check_compute_dtype(gan_cfg: GanConfig) -> None:
-    """Raise unless the compute policy is float32, the only one ported."""
-    if gan_cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={gan_cfg.compute_dtype!r}: the PyTorch port runs "
-            "float32 only; the bfloat16 policy is ROADMAP item A20")
+    """Raise unless the compute policy is one of `COMPUTE_DTYPES`."""
+    if gan_cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={gan_cfg.compute_dtype!r}: the policy is "
+                         f"one of {COMPUTE_DTYPES}")

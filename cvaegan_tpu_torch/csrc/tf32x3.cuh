@@ -77,7 +77,7 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
 
 // 16 bytes from device memory into shared memory, bypassing L1; with
 // `valid` false the destination is zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
                :: "r"(to), "l"(src), "r"(valid ? 16 : 0));

@@ -44,7 +44,7 @@ from cvaegan_tpu_torch.core.state import (Adam, apply_eval, capture_graphs, init
                                           resolve_device)
 from cvaegan_tpu_torch.data.tabular import TabularDataset
 from cvaegan_tpu_torch.models import mlp
-from cvaegan_tpu_torch.models.layers import forward_with
+from cvaegan_tpu_torch.models.layers import dtype_override, forward_with
 from cvaegan_tpu_torch.utils.logger import Logger
 from cvaegan_tpu_torch.utils.profiling import nan_debug_active
 
@@ -251,10 +251,14 @@ class Classifier:
         self.logger.info("Finished streamed training")
         return n_windows
 
+    @dtype_override(torch.float32)
     def _fit_arrays(self, x, y, epochs: int, opt: Adam, weights=None,
                     eager: bool = False) -> None:
         """`epochs` epochs over one array pair with per-row `weights`
-        (default 1), continuing `opt`."""
+        (default 1), continuing `opt`. Float32 whatever the compute policy
+        (the captures included), as the JAX package pins its classifier
+        (`cvaegan_tpu/eval/classifier.py:217-223`): the instrument does not
+        move with the models it measures."""
         self._load_window(np.asarray(x, np.float32), np.asarray(y), weights)
         w, bs = self._window, self.cfg.batch_size
         n = w["x"].shape[0]
@@ -349,6 +353,7 @@ class Classifier:
         return graphs
 
     # ------------------------------------------------------------ predict
+    @dtype_override(torch.float32)
     def _logits(self, x: np.ndarray) -> np.ndarray:
         outs = []
         for i in range(0, len(x), self.PREDICT_CHUNK):

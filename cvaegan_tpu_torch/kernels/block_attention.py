@@ -1,19 +1,26 @@
 """Blockwise (flash-style) self-attention forward, the counterpart of
 `cvaegan_tpu/kernels/block_attention.py`.
 
-Layout: q, k, v are `[batch*heads, seq, head_dim]` float32, as in the JAX
-package. `block_attention` computes softmax(q k^T / sqrt(d)) v;
+Layout: q, k, v are `[batch*heads, seq, head_dim]`, as in the JAX
+package, all float32 or all bfloat16 (the bf16 compute policy's q, k, v);
+the outputs are float32 either way, as the JAX kernels return them.
+`block_attention` computes softmax(q k^T / sqrt(d)) v;
 `block_attention_with_entropy` also returns each row's attention entropy
 `[batch*heads, seq]` without materialising the probability matrix, which
 is what `MultiHeadSelfAttention` uses at long sequences. Both run the
 hand-written CUDA kernels of `cvaegan_tpu_torch/csrc/block_attention.cu`
-(design and bound in its header), for head dims 16, 32, 64 and 128 and any
-seq >= 1, ragged or not: the kernels mask the ragged tails themselves.
+(design and bound in its header; the bf16 instantiations replace the same
+TPU kernels, `cvaegan_tpu/kernels/block_attention.py:30,56`, run on bf16
+operands), for head dims 16, 32, 64 and 128 and any seq >= 1, ragged or
+not: the kernels mask the ragged tails themselves.
 
 The wrappers take their plain PyTorch versions,
 `block_attention_reference` and `block_attention_with_entropy_reference`,
-only for tensors that lie on the CPU. For CUDA tensors they launch a
-kernel or raise; `LAUNCHES` and `ENTROPY_LAUNCHES` count the launches.
+only for tensors that lie on the CPU; they take bf16 inputs by widening
+them to float32 (exact), which is what the JAX kernels compute on them.
+For CUDA tensors the wrappers launch a kernel or raise; `LAUNCHES` and
+`ENTROPY_LAUNCHES` count the float32 kernels' launches,
+`BF16_LAUNCHES` and `BF16_ENTROPY_LAUNCHES` the bf16 kernels'.
 The JAX entries' `interpret`, `block_q` and `block_k` are TPU tiling and
 emulation knobs and have no counterpart here. Like the TPU kernels, these
 are forward-only: a call that would need a gradient raises.
@@ -30,13 +37,18 @@ from cvaegan_tpu_torch.kernels import _build
 
 SOURCE = "block_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
+#: input dtype -> the C entry that takes it
+ENTRIES = {torch.float32: "block_attention_f32", torch.bfloat16: "block_attention_bf16"}
 #: score-matrix elements per chunk of heads in the plain versions (1 GiB
 #: of float32), so that a long sequence fits on the card
 PLAIN_CHUNK_ELEMENTS = 1 << 28
 
-#: kernel launches since the count was last set to 0, per wrapper
+#: kernel launches since the count was last set to 0, per wrapper and
+#: input dtype
 LAUNCHES = 0
 ENTROPY_LAUNCHES = 0
+BF16_LAUNCHES = 0
+BF16_ENTROPY_LAUNCHES = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -64,6 +76,11 @@ def reference_attention_entropy(q: torch.Tensor, k: torch.Tensor) -> torch.Tenso
     return -(torch.softmax(s, dim=-1) * torch.log_softmax(s, dim=-1)).sum(-1)
 
 
+def _widened(*ts: torch.Tensor):
+    """bf16 tensors as float32 (exact); others as they are."""
+    return tuple(t.float() if t.dtype == torch.bfloat16 else t for t in ts)
+
+
 def _heads_per_chunk(q: torch.Tensor) -> int:
     seq = q.shape[1]
     return max(1, PLAIN_CHUNK_ELEMENTS // max(1, seq * seq))
@@ -72,7 +89,9 @@ def _heads_per_chunk(q: torch.Tensor) -> int:
 def block_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor) -> torch.Tensor:
     """Plain version of `block_attention`: `reference_attention` over
-    chunks of heads, each holding at most `PLAIN_CHUNK_ELEMENTS` scores."""
+    chunks of heads, each holding at most `PLAIN_CHUNK_ELEMENTS` scores;
+    bf16 inputs are widened to float32."""
+    q, k, v = _widened(q, k, v)
     n = _heads_per_chunk(q)
     return torch.cat([reference_attention(q[i:i + n], k[i:i + n], v[i:i + n])
                       for i in range(0, q.shape[0], n)])
@@ -82,7 +101,9 @@ def block_attention_with_entropy_reference(
         q: torch.Tensor, k: torch.Tensor,
         v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `block_attention_with_entropy`: (dense attention,
-    dense row entropy) over chunks of heads, one score matrix per chunk."""
+    dense row entropy) over chunks of heads, one score matrix per chunk;
+    bf16 inputs are widened to float32."""
+    q, k, v = _widened(q, k, v)
     n = _heads_per_chunk(q)
     outs, ents = [], []
     for i in range(0, q.shape[0], n):
@@ -128,9 +149,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head dim must be one of {HEAD_DIMS}, got {q.shape[-1]}")
+    if q.dtype not in ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("block attention takes q, k and v all float32 or all "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     for t in (q, k, v):
-        if t.dtype != torch.float32:
-            raise TypeError(f"block attention takes float32, got {t.dtype}")
         if t.device != q.device:
             raise ValueError("q, k and v must lie on one device")
     if q.device.type not in ("cpu", "cuda"):
@@ -146,8 +168,9 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.block_attention_f32.argtypes = [p] * 5 + [i] * 3 + [p]
-        lib.block_attention_f32.restype = i
+        for name in ENTRIES.values():
+            getattr(lib, name).argtypes = [p] * 5 + [i] * 3 + [p]
+            getattr(lib, name).restype = i
         lib.block_attention_error_string.argtypes = [i]
         lib.block_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -155,16 +178,16 @@ def build() -> ctypes.CDLL:
 
 
 def _launch(q, k, v, with_entropy: bool):
-    """Launch one kernel on CUDA tensors checked by `_check` and count the
-    launch; returns (out, entropy or None)."""
-    global LAUNCHES, ENTROPY_LAUNCHES
+    """Launch the kernel for q's dtype on CUDA tensors checked by `_check`
+    and count the launch; returns (out, entropy or None), float32."""
+    global LAUNCHES, ENTROPY_LAUNCHES, BF16_LAUNCHES, BF16_ENTROPY_LAUNCHES
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError("block attention takes contiguous tensors")
         if t.data_ptr() % 16:
             raise ValueError("block attention takes 16-byte aligned tensors")
     bh, seq, d = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32)
     ent = torch.empty((bh, seq), device=q.device, dtype=torch.float32) \
         if with_entropy else None
     if out.numel() == 0:
@@ -172,14 +195,19 @@ def _launch(q, k, v, with_entropy: bool):
     lib = build()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.block_attention_f32(
+        rc = getattr(lib, ENTRIES[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if ent is None else ent.data_ptr(), bh, seq, d, stream)
     if rc != 0:
         raise RuntimeError("block attention launch failed: "
                            f"{lib.block_attention_error_string(rc).decode()}")
-    if with_entropy:
+    bf16 = q.dtype == torch.bfloat16
+    if with_entropy and bf16:
+        BF16_ENTROPY_LAUNCHES += 1
+    elif with_entropy:
         ENTROPY_LAUNCHES += 1
+    elif bf16:
+        BF16_LAUNCHES += 1
     else:
         LAUNCHES += 1
     return out, ent
@@ -187,9 +215,9 @@ def _launch(q, k, v, with_entropy: bool):
 
 def block_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v over `[bh, seq, d]` float32 inputs. CPU
-    tensors take `block_attention_reference`; CUDA tensors launch the
-    kernel (contiguous inputs only)."""
+    """softmax(q k^T / sqrt(d)) v over `[bh, seq, d]` float32 or bf16
+    inputs, as float32. CPU tensors take `block_attention_reference`; CUDA
+    tensors launch the kernel for their dtype (contiguous inputs only)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return block_attention_reference(q, k, v)

@@ -13,7 +13,8 @@ generator. The network's own forward then runs unchanged on `[K, batch,
 features]` (`[K, batch, seq, features]` inside RAIN's attention stacks),
 so a step of a bank is one kernel sequence for all K replicas, not K.
 Under `layers.state_frozen` a banked layer updates nothing, as the
-serial layers do.
+serial layers do. Under the bf16 compute policy each banked layer casts
+as its serial layer does (`layers.dense`, `BatchNorm`, `LayerNorm`).
 
 `load` and `store` copy the K networks' tensors into and out of the
 banked one, in place, so a captured epoch stays valid.
@@ -34,6 +35,9 @@ from cvaegan_tpu_torch.models.layers import (
     LayerNorm,
     SpectralDense,
     _moments,
+    compute_dtype,
+    to_compute,
+    widened,
 )
 
 
@@ -86,12 +90,19 @@ def _per_replica(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _linear(x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
     """`x [K, ..., in]` times replica k's `weight [K, out, in]` (and plus
-    its bias): the axes between are flattened into one batched matmul."""
+    its bias) in `compute_dtype()`: the axes between are flattened into one
+    batched matmul. Under bf16 the product is rounded before the bias is
+    added, as `layers.dense` orders them; `baddbmm` would fuse the add."""
+    dt = compute_dtype()
     flat = x.reshape(x.shape[0], -1, x.shape[-1])
-    if bias is None:
+    if dt == torch.float32 and bias is not None:
+        out = torch.baddbmm(bias.unsqueeze(1), flat, weight.transpose(1, 2))
+    elif dt == torch.float32:
         out = torch.bmm(flat, weight.transpose(1, 2))
     else:
-        out = torch.baddbmm(bias.unsqueeze(1), flat, weight.transpose(1, 2))
+        out = torch.bmm(flat.to(dt), weight.to(dt).transpose(1, 2))
+        if bias is not None:
+            out = out + bias.to(dt).unsqueeze(1)
     return out.reshape(*x.shape[:-1], weight.shape[1])
 
 
@@ -146,6 +157,7 @@ class BankedBatchNorm(nn.Module):
         self.register_buffer("running_var", _stacked(l.running_var for l in layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = widened(x)
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
@@ -156,7 +168,8 @@ class BankedBatchNorm(nn.Module):
                     self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                     self.running_var.copy_(m * self.running_var + (1 - m) * var)
         scale = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.unsqueeze(-2)) * scale.unsqueeze(-2) + self.bias.unsqueeze(-2)
+        return to_compute((x - mean.unsqueeze(-2)) * scale.unsqueeze(-2)
+                          + self.bias.unsqueeze(-2))
 
 
 class BankedLayerNorm(nn.Module):
@@ -170,6 +183,7 @@ class BankedLayerNorm(nn.Module):
         self.bias = nn.Parameter(_stacked(l.bias for l in layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = widened(x)
         mean, var = _moments(x, -1, keepdim=True)
         return ((x - mean) * (torch.rsqrt(var + self.eps) * _per_replica(self.weight, x))
                 + _per_replica(self.bias, x))

@@ -17,6 +17,13 @@ Layouts and numerics follow the JAX package, not torch's built-ins:
     [in] as buffers and runs one iteration per train forward, without
     gradient; `torch.nn.utils.parametrizations.spectral_norm` iterates
     differently and normalises with max(|x|, eps).
+  * The compute policy (`compute_dtype`, as in the JAX package): under
+    "bfloat16" `Dense` and `SpectralDense` compute in bf16 from float32
+    parameters (the product rounded to bf16, then the bias added in bf16,
+    as JAX orders them); `BatchNorm` takes its statistics in float32 and
+    returns the policy's dtype; `LayerNorm` computes in float32 and
+    returns float32, as Flax's `nn.LayerNorm` does on a bf16 input. Under
+    "float32" every cast is a no-op and the forwards are the float32 ones.
   * Every module reads `self.training`; a train-mode forward under
     `torch.no_grad()` still updates the BatchNorm statistics and `u`/`v`
     in place (the JAX package returns them as new mutables instead).
@@ -35,9 +42,59 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cvaegan_tpu_torch.core import config as config_lib
 from cvaegan_tpu_torch.core import initializers as init
 
 LEAKY_SLOPE = 0.2
+#: the policy's names and their dtypes
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+#: the dtype a `dtype_override` block pins, and the policy of the trainer
+#: whose method is running (`policy`)
+_OVERRIDE: Optional[torch.dtype] = None
+_POLICY: Optional[torch.dtype] = None
+
+
+def compute_dtype() -> torch.dtype:
+    """The matmul/activation dtype in force (`cvaegan_tpu/models/layers.py:
+    31-42`): a `dtype_override` block's, else the running trainer's policy
+    (`policy`), else the process-wide `config.settings.gan.compute_dtype`.
+    Read at every forward, so a captured CUDA graph keeps the dtype it was
+    captured under: the trainers key their captures on it."""
+    if _OVERRIDE is not None:
+        return _OVERRIDE
+    if _POLICY is not None:
+        return _POLICY
+    config_lib.check_compute_dtype(config_lib.settings.gan)
+    return DTYPES[config_lib.settings.gan.compute_dtype]
+
+
+@contextlib.contextmanager
+def dtype_override(dtype):
+    """Pin `compute_dtype()` to `dtype` (a name or a torch dtype) inside the
+    block, whatever the policy (`cvaegan_tpu/models/layers.py:45-62`): the
+    downstream classifier stays float32 while the models under study run
+    bf16. Wrap the region where a CUDA graph is captured, not only where it
+    is replayed."""
+    global _OVERRIDE
+    old, _OVERRIDE = _OVERRIDE, DTYPES.get(dtype, dtype)
+    try:
+        yield
+    finally:
+        _OVERRIDE = old
+
+
+@contextlib.contextmanager
+def policy(gan_cfg: config_lib.GanConfig):
+    """Run the block under `gan_cfg.compute_dtype` (a trainer's settings);
+    a `dtype_override` block around it still wins."""
+    global _POLICY
+    config_lib.check_compute_dtype(gan_cfg)
+    old, _POLICY = _POLICY, DTYPES[gan_cfg.compute_dtype]
+    try:
+        yield
+    finally:
+        _POLICY = old
 
 
 def hidden_sizes(total_input_dim: int, pin_h3: bool = False) -> Tuple[int, int, int]:
@@ -62,6 +119,33 @@ def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v) + eps)
 
 
+def widened(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor as float32; any other as it is (float32, or float64 in
+    a reference run, which the policy never narrows)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def to_compute(x: torch.Tensor) -> torch.Tensor:
+    """`x` in the bf16 policy's dtype; as it is under float32, whose casts
+    are no-ops in the JAX package too."""
+    dt = compute_dtype()
+    return x if dt == torch.float32 else x.to(dt)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """x W^T + b in the compute dtype, as the JAX package's `Dense`:
+    `x.astype(dt) @ k.astype(dt)`, then `+ bias.astype(dt)`. Under bf16
+    the product is rounded to bf16 before the bias is added; `F.linear`
+    with its bias may fuse the add into the GEMM's epilogue and round once,
+    so the bias is added apart. In float32 both orders round alike."""
+    dt = compute_dtype()
+    if dt == torch.float32:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dt), weight.to(dt))
+    return y if bias is None else y + bias.to(dt)
+
+
 class Dense(nn.Module):
     """Linear layer with the reference's N(0, 0.02)/zeros init."""
 
@@ -76,7 +160,7 @@ class Dense(nn.Module):
             init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return dense(x, self.weight, self.bias)
 
 
 class SpectralDense(nn.Module):
@@ -87,7 +171,8 @@ class SpectralDense(nn.Module):
     In the JAX layout K = weight.T [in, out]: v = n(K u), u = n(K^T v),
     sigma = v^T K u, with n(x) = x / (|x| + 1e-12). Here that reads
     v = n(u W), u = n(W v), sigma = u^T W v. Gradients reach the weight
-    through sigma but not through `u`/`v`.
+    through sigma but not through `u`/`v`. The power iteration and sigma
+    stay float32 under any policy; W / sigma is cast for the product.
     """
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True):
@@ -114,7 +199,7 @@ class SpectralDense(nn.Module):
                 self.u.copy_(_l2_normalize(self.weight @ v))
                 self.v.copy_(v)
         sigma = torch.dot(self.u, self.weight @ self.v)
-        return F.linear(x, self.weight / sigma, self.bias)
+        return dense(x, self.weight / sigma, self.bias)
 
 
 def _moments(x: torch.Tensor, dim: int, keepdim: bool = False):
@@ -128,7 +213,9 @@ def _moments(x: torch.Tensor, dim: int, keepdim: bool = False):
 class BatchNorm(nn.Module):
     """BatchNorm1d with Flax's statistics: momentum 0.9 on the running
     averages (torch's 0.1), eps 1e-5, scale ~ N(1, 0.02), bias 0
-    (`src/utils.py:99-101`), biased running variance."""
+    (`src/utils.py:99-101`), biased running variance. The statistics are
+    taken in float32 on `widened(x)`, and the output is cast by
+    `to_compute`."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -146,22 +233,25 @@ class BatchNorm(nn.Module):
         init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = widened(x)
         if self.training:
             mean, var = _moments(x, 0)
-            if not self.update_state:
-                return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if self.update_state:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return to_compute((x - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+                          + self.bias)
 
 
 class LayerNorm(nn.Module):
     """Flax `nn.LayerNorm(epsilon=1e-5)`: scale 1, bias 0, statistics as
-    `_moments` computes them over the last axis."""
+    `_moments` computes them over the last axis. It computes in float32
+    and returns float32 whatever the input's dtype, as Flax's does with
+    float32 parameters."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -170,6 +260,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = widened(x)
         mean, var = _moments(x, -1, keepdim=True)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 

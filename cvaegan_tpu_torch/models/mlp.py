@@ -32,6 +32,7 @@ from cvaegan_tpu_torch.models.layers import (
     hidden_sizes,
     leaky_relu,
     one_hot,
+    to_compute,
 )
 
 OUT_ACTIVATIONS = ("sigmoid", "tanh", None)
@@ -156,7 +157,9 @@ class Discriminator(nn.Module):
 class Classifier(nn.Module):
     """Companion / downstream classifier
     (`src/models/cvae_gan_models.py:251-292`): Linear+ReLU+Dropout,
-    Linear+LayerNorm+ReLU+Dropout, Linear+ReLU, Linear->logits."""
+    Linear+LayerNorm+ReLU+Dropout, Linear+ReLU, Linear->logits. The
+    LayerNorm computes in float32 and its output is cast to the compute
+    policy (JAX `models/mlp.py:170-176`)."""
 
     def __init__(self, input_dim: int, num_classes: int, spectral: bool = False):
         super().__init__()
@@ -170,6 +173,6 @@ class Classifier(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         l1, l2, l3, l4 = self.layers
         h = self.dropout(torch.relu(l1(x)), generator)
-        h = self.dropout(torch.relu(self.norm(l2(h))), generator)
+        h = self.dropout(torch.relu(to_compute(self.norm(l2(h)))), generator)
         h = torch.relu(l3(h))
         return l4(h)

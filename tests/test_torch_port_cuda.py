@@ -259,6 +259,50 @@ def test_block_attention_with_entropy_matches_plain(device, d, scale):
             assert ratio <= 1.0, (seq, err, ratio)
 
 
+@pytest.mark.parametrize("scale", (1.0, 10.0))
+@pytest.mark.parametrize("d", block_attention.HEAD_DIMS)
+def test_bf16_kernels_match_plain(device, d, scale):
+    """The bf16 instantiations of B2 and B3 against the plain version, which
+    widens the same bf16 inputs to float32 (exact): the products are then
+    the float32 kernel's up to summation order, so the float32 rules hold
+    (ATTN_TOL at unit scale, `float64_rule` at scale 10)."""
+    for seq in ATTN_SEQS:
+        q, k, v = (t.bfloat16() for t in _qkv(4, seq, d, device, seed=seq, scale=scale))
+        before = (block_attention.BF16_LAUNCHES, block_attention.BF16_ENTROPY_LAUNCHES,
+                  block_attention.LAUNCHES, block_attention.ENTROPY_LAUNCHES)
+        got = block_attention.block_attention(q, k, v)
+        out, ent = block_attention.block_attention_with_entropy(q, k, v)
+        torch.cuda.synchronize()
+        after = (block_attention.BF16_LAUNCHES, block_attention.BF16_ENTROPY_LAUNCHES,
+                 block_attention.LAUNCHES, block_attention.ENTROPY_LAUNCHES)
+        assert after == (before[0] + 1, before[1] + 1, *before[2:])
+        assert got.dtype == out.dtype == ent.dtype == torch.float32
+        want_out, want_ent = block_attention.block_attention_with_entropy_reference(q, k, v)
+        assert want_out.dtype == torch.float32
+        if scale == 1.0:
+            for a, b in ((got, want_out), (out, want_out), (ent, want_ent)):
+                torch.testing.assert_close(a, b, **ATTN_TOL)
+            continue
+        exact = block_attention.block_attention_with_entropy_reference(
+            q.double(), k.double(), v.double())
+        for a, plain, want in ((got, want_out, exact[0]), (out, want_out, exact[0]),
+                               (ent, want_ent, exact[1])):
+            err, ratio = block_attention.float64_rule(a, plain, want, ATTN_TOL["atol"])
+            assert ratio <= 1.0, (seq, err, ratio)
+
+
+def test_bf16_kernels_reject_mixed_dtypes(device):
+    q, k, v = _qkv(2, 128, 32, device)
+    before = (block_attention.BF16_LAUNCHES, block_attention.BF16_ENTROPY_LAUNCHES)
+    for fn in (block_attention.block_attention, block_attention.block_attention_with_entropy):
+        with pytest.raises(TypeError, match="all bfloat16"):
+            fn(q.bfloat16(), k, v.bfloat16())
+        with pytest.raises(ValueError, match="aligned"):
+            flat = torch.randn(2 * 128 * 32 + 1, device=device).bfloat16()[1:]
+            fn(flat.view(2, 128, 32), k.bfloat16(), v.bfloat16())
+    assert (block_attention.BF16_LAUNCHES, block_attention.BF16_ENTROPY_LAUNCHES) == before
+
+
 def test_block_attention_rejects_what_it_cannot_run(device):
     q, k, v = _qkv(2, 64, 32, device)
     before = (block_attention.LAUNCHES, block_attention.ENTROPY_LAUNCHES)
@@ -423,3 +467,65 @@ def test_generator_advances_between_replays(device):
     again = run(True)
     assert not torch.equal(first, second)
     assert torch.equal(first, again)
+
+
+# ----------------------------------------------------------- the bf16 policy
+def test_bf16_block_takes_the_bf16_kernel(device):
+    """Under the bf16 policy a RAIN block at seq 256 hands bf16 q, k, v to
+    the bf16 B3 (one launch, none of the float32 kernels'); its row
+    entropies come back float32 and agree with the dense path's in bf16
+    to bf16's resolution."""
+    from cvaegan_tpu_torch.models import layers as tl
+
+    g = torch.Generator().manual_seed(0)
+    block = ResidualAttentionBlock(64, 64)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.normal_(0.0, p.shape[-1] ** -0.5 if p.dim() == 2 else 0.1, generator=g)
+    block = block.to(device).eval()
+    x = torch.randn(2, 256, 64, generator=g).to(device)
+    before = (block_attention.BF16_ENTROPY_LAUNCHES, block_attention.ENTROPY_LAUNCHES)
+    with torch.no_grad(), tl.dtype_override(torch.bfloat16):
+        out, stats = block(x)
+        block.attention.use_kernel = False
+        dense_out, probs = block(x)
+        block.attention.use_kernel = None
+    torch.cuda.synchronize()
+    assert (block_attention.BF16_ENTROPY_LAUNCHES, block_attention.ENTROPY_LAUNCHES) == (
+        before[0] + 1, before[1])
+    assert stats.value.dtype == torch.float32 and out.dtype == dense_out.dtype
+    dense_ent = -(probs.float() * torch.log(probs.float() + 1e-12)).sum(-1)
+    torch.testing.assert_close(stats.value, dense_ent, rtol=2.0 ** -6, atol=2.0 ** -6)
+    torch.testing.assert_close(out.float(), dense_out.float(), rtol=2.0 ** -5, atol=2.0 ** -5)
+
+
+@pytest.mark.parametrize("balanced_mode", [False, True])
+def test_bf16_captured_epoch_matches_eager_bitwise(device, balanced_mode):
+    """The bf16 policy's captured epoch replays the eager epoch's kernels
+    with the same Philox offsets: every loss and state tensor bitwise, all
+    float32."""
+    data = _blobs()
+    models = []
+    for eager in (False, True):
+        model = _trainer(1, balanced_mode=balanced_mode)
+        model.gan_cfg.compute_dtype = "bfloat16"
+        model.fit(data, eager=eager)
+        models.append(model)
+    captured, eager = models
+    assert captured._graph[0][0] == "bfloat16" and eager._graph is None
+    for k in captured.loss_keys:
+        assert captured.loss_history[k] == eager.loss_history[k]
+    for a, b in zip(captured._static_tensors(), eager._static_tensors()):
+        assert a.dtype in (torch.float32, torch.int32)
+        assert torch.equal(a, b)
+
+
+def test_policy_flip_recaptures(device):
+    """Flipping the policy captures another epoch and keeps the first."""
+    model = _trainer(1)
+    model.fit(_blobs())
+    f32_key, f32_graph = model._graph
+    model.gan_cfg.compute_dtype = "bfloat16"
+    model.fit(_blobs())
+    assert model._graph[0][0] == "bfloat16" and model._graph[1] is not f32_graph
+    assert model._graphs[f32_key] is f32_graph

@@ -255,7 +255,12 @@ def test_ema_filter_state(blob_dataset):
 
 
 def test_float32_only():
+    """The compute policy takes "float32" and "bfloat16" (the bf16 policy
+    is ported); any other value still raises, at construction."""
     settings = tconfig.Settings()
     settings.gan.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="A20"):
-        CVAEGAN(device="cpu", settings=settings)
+    assert CVAEGAN(device="cpu", settings=settings).gan_cfg.compute_dtype == "bfloat16"
+    for bad in ("float16", "float64", "bf16"):
+        settings.gan.compute_dtype = bad
+        with pytest.raises(ValueError, match="compute_dtype"):
+            CVAEGAN(device="cpu", settings=settings)

@@ -46,9 +46,13 @@ def test_import_loads_no_jax():
 
 
 @pytest.mark.parametrize("path", [*sorted(PACKAGE.rglob("*.py")),
-                                  PACKAGE.parent / "chip_smoke.py"],
+                                  PACKAGE.parent / "chip_smoke.py",
+                                  *(PACKAGE.parent / "experiments" / f"torch_port_{name}.py"
+                                    for name in ("multiseed", "strict_yield_split"))],
                          ids=lambda p: (p.name if p.parent == PACKAGE.parent
-                                        else str(p.relative_to(PACKAGE))))
+                                        else str(p.relative_to(PACKAGE))
+                                        if PACKAGE in p.parents
+                                        else str(p.relative_to(PACKAGE.parent))))
 def test_sources_import_no_jax(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):

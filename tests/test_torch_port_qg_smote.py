@@ -216,6 +216,22 @@ def errors_over_tol(trainer, reference, tol=TOL):
     return worst
 
 
+def assert_as_exact_as(trainer, other, exact, tol):
+    """`trainer`'s step is as exact as `other`'s: for every tensor the step
+    updates, its largest |error| from the float64 run `exact` is within
+    `tol` of that tensor's scale (atol + rtol max|exact|) or no more than
+    twice `other`'s largest |error| on the same tensor. Per tensor, not per
+    element: both float32 steps scatter rounding of the same size over a
+    tensor, and an element-wise ratio reads whichever small element it
+    happens to land on (ROADMAP C3)."""
+    for a, o, r in zip(trainer._static_tensors(), other._static_tensors(),
+                       exact._static_tensors()):
+        a, o, r = a.detach().double(), o.detach().double(), r.detach().double()
+        err, theirs = float((a - r).abs().max()), float((o - r).abs().max())
+        limit = max(tol["atol"] + tol["rtol"] * float(r.abs().max()), 2.0 * theirs)
+        assert err <= limit, (tuple(r.shape), err, theirs, limit)
+
+
 def float64_runs(monkeypatch, module, make_port, make_steps, state, key):
     """One step run three ways from the same state, inputs and dropout
     masks: the port in float32, the port in float64 (its networks, Adam

@@ -132,22 +132,23 @@ def power_iterated(state, steps=5):
 
 
 def jax_twin(name, blob_dataset, seed=0):
-    """(JAX trainer, its warm state, the state as numpy trees), built once:
-    BatchNorm statistics and Adam moments drawn, spectral u/v drawn and
-    then power-iterated."""
-    if name not in _JAX:
-        jt = getattr(cvaegan_tpu, name)(seed=0)
+    """(JAX trainer of `seed`, its warm state, the state as numpy trees),
+    built once per name and seed: BatchNorm statistics and Adam moments
+    drawn (numpy seed 20 + seed), spectral u/v drawn and then
+    power-iterated."""
+    if (name, seed) not in _JAX:
+        jt = getattr(cvaegan_tpu, name)(seed=seed)
         jt.verbose = False
         jt._prepare(blob_dataset)
         state = power_iterated(_warm_state(jt, 20 + seed))
         jt.state = state
         jt._clear_gen_caches()
-        _JAX[name] = (jt, state, _tree(state))
-    return _JAX[name]
+        _JAX[name, seed] = (jt, state, _tree(state))
+    return _JAX[name, seed]
 
 
-def port_twin(name, blob_dataset, jax_name=None):
-    jt, _, tree = jax_twin(jax_name or name, blob_dataset)
+def port_twin(name, blob_dataset, jax_name=None, seed=0):
+    jt, _, tree = jax_twin(jax_name or name, blob_dataset, seed)
     port = getattr(cvaegan_tpu_torch, name)(seed=0, device="cpu")
     port._prepare((blob_dataset.tr_samples, blob_dataset.tr_labels))
     port.load_jax_state(tree)
@@ -290,6 +291,28 @@ def test_ctgan_d_step_against_float64(monkeypatch, blob_dataset):
     assert max(port_err, jax_err) > 1.0, (port_err, jax_err)
     assert _errors_over_tol(f32, f64, GP_TOL) <= 1.0, port_err
     assert _errors_over_tol(from_jax, f64, GP_TOL) <= 1.0, jax_err
+
+
+@pytest.mark.parametrize("seed,key", [(1, 42), (3, 42)])
+def test_ctgan_d_step_as_exact_as_jax(monkeypatch, blob_dataset, seed, key):
+    """CTGAN's D step held to the float64 run at states other than the
+    committed one, where the JAX comparison at GP_TOL does not hold (at
+    trainer seed 3, key 42 the port and JAX lie 1.55 of GP_TOL apart): the
+    port's float32 step is as exact as the JAX package's
+    (`assert_as_exact_as`). The penalty's pieces (interpolates, input
+    gradient, its norm, the penalty and its gradient) lie as far from
+    float64 in both packages, and both scatter rounding of ~1e-4 over the
+    critic's gradient (largest elements ~1e2), so an element-wise ratio
+    at GP_TOL's atol reads whichever small element the noise lands on."""
+    from test_torch_port_qg_smote import assert_as_exact_as, float64_runs
+
+    jt, state, _ = jax_twin("CTGAN", blob_dataset, seed)
+    k = jax.random.PRNGKey(key)
+    f32, f64, from_jax = float64_runs(
+        monkeypatch, "test_torch_port_sngan_ctgan",
+        lambda: port_twin("CTGAN", blob_dataset, seed=seed),
+        lambda port: _steps("CTGAN", "d", jt, port, k), state, k)
+    assert_as_exact_as(f32, from_jax, f64, GP_TOL)
 
 
 def test_sngan_generator_without_spectral_norm(monkeypatch, blob_dataset):

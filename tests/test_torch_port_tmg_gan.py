@@ -39,7 +39,7 @@ from test_torch_port_family import (  # noqa: F401  (masks is a fixture)
     _warm_state,
     masks,
 )
-from test_torch_port_qg_smote import errors_over_tol, float64_runs
+from test_torch_port_qg_smote import assert_as_exact_as, errors_over_tol, float64_runs
 from test_torch_port_sngan_ctgan import power_iterated
 
 import cvaegan_tpu
@@ -71,25 +71,26 @@ def _one_thread():
 _JAX = {}
 
 
-def jax_twin(blob_dataset):
-    """(JAX TMG-GAN, its warm state, the state as numpy trees), built once."""
-    if not _JAX:
-        jt = cvaegan_tpu.TMGGAN(seed=0)
+def jax_twin(blob_dataset, seed=0):
+    """(JAX TMG-GAN of `seed`, its warm state (numpy seed 40 + seed), the
+    state as numpy trees), built once per seed."""
+    if seed not in _JAX:
+        jt = cvaegan_tpu.TMGGAN(seed=seed)
         jt.verbose = False
         jt._prepare(blob_dataset)
-        state = power_iterated(_warm_state(jt, 40))
+        state = power_iterated(_warm_state(jt, 40 + seed))
         gens = state["gens"]
         adam_state, *rest = gens.opt_state
         adam_state = adam_state._replace(count=jnp.asarray(GEN_COUNTS, jnp.int32))
         state["gens"] = gens.replace(opt_state=(adam_state, *rest))
         jt.state = state
         jt._clear_gen_caches()
-        _JAX["twin"] = (jt, state, _tree(state))
-    return _JAX["twin"]
+        _JAX[seed] = (jt, state, _tree(state))
+    return _JAX[seed]
 
 
-def port_twin(blob_dataset):
-    _, _, tree = jax_twin(blob_dataset)
+def port_twin(blob_dataset, seed=0):
+    _, _, tree = jax_twin(blob_dataset, seed)
     port = TMGGAN(seed=0, device="cpu")
     port._prepare((blob_dataset.tr_samples, blob_dataset.tr_labels))
     port.load_jax_state(tree)
@@ -240,6 +241,21 @@ def test_diversity_step_against_float64(monkeypatch, blob_dataset):
     assert port_err <= 1.0, port_err
     assert jax_err > 1.0, jax_err
     assert errors_over_tol(from_jax, f64, DIV_TOL) <= 1.0, jax_err
+
+
+def test_diversity_step_as_exact_as_jax(monkeypatch, blob_dataset):
+    """The diversity step held to the float64 run at a state other than the
+    committed one, where the JAX comparison at DIV_TOL does not hold: at
+    trainer seed 1, key 63 the port lies 1.25 of DIV_TOL from float64, the
+    JAX package 1.32, and the two 2.57 apart. Both are as far from the
+    exact step, so the port is held to be as exact as JAX's float32 step
+    (`assert_as_exact_as`)."""
+    jt, state, _ = jax_twin(blob_dataset, seed=1)
+    key = jax.random.PRNGKey(63)
+    f32, f64, from_jax = float64_runs(
+        monkeypatch, "test_torch_port_tmg_gan", lambda: port_twin(blob_dataset, seed=1),
+        lambda port: _steps("div", jt, port, key, None), state, key)
+    assert_as_exact_as(f32, from_jax, f64, DIV_TOL)
 
 
 def test_cosine_term_turns_on_at_epoch_1000(blob_dataset):

@@ -340,9 +340,10 @@ def test_short_fit_on_blobs(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """Only the bf16 policy (A20) is left unported: per-chunk checkpoints
-    (A19) are written during `fit`, and `fit_streamed` (A18) reads its
-    CSVs (a missing one raises as in the JAX package)."""
+    """Nothing of these is left unported: per-chunk checkpoints (A19) are
+    written during `fit`, `fit_streamed` (A18) reads its CSVs (a missing
+    one raises as in the JAX package), and the compute policy takes
+    "bfloat16" (A20) but raises on any other value than it and "float32"."""
     port = CVAEGAN(seed=0, device="cpu", settings=_small_settings())
     port.checkpoint_dir = tmp_path / "ckpt"
     port.fit(_data())
@@ -351,5 +352,7 @@ def test_unported_options_raise(tmp_path):
         port.fit_streamed(tmp_path / "x.csv", tmp_path / "y.csv")
     settings = _small_settings()
     settings.gan.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="A20"):
+    CVAEGAN(seed=0, device="cpu", settings=settings)
+    settings.gan.compute_dtype = "float16"
+    with pytest.raises(ValueError, match="compute_dtype"):
         CVAEGAN(seed=0, device="cpu", settings=settings)
