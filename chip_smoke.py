@@ -13,7 +13,9 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
 
   1. environment: torch/CUDA versions, card name and power limit; TF32 off;
   2. build: compiles every kernel source from `cvaegan_tpu_torch/csrc`, one
-     `nvcc` each, all at once;
+     `nvcc` each, all at once, and reports ptxas's registers and spills
+     per kernel and, for the bf16 attention library, its SASS's counts of
+     `HGMMA` (wgmma) and `UTMALDG` (TMA loads) and its highest register;
   3. kernel against plain: each kernel's wrapper against its plain PyTorch
      version on the card, at the paths' shapes and over the head dims and
      ragged sequence lengths the attention kernels take; both fused MLP
@@ -116,14 +118,16 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
      original's bitwise (save and restore seconds); `trace()` around a
      replay writes a trace file, `nan_debug()` raises on a NaN made on the
      card, and `fit` inside it replays nothing. No kernel launches there;
- 12. bf16: the bf16 compute policy. B2/B3 on bf16 operands (their bf16
-     instantiations) at T1 [128, 1024, 64] and the d 32 launch [128, 1024,
-     32], held to the plain version run in float32 on the same inputs
-     (widened exactly) at rtol = atol = 2e-5, and at scale 10 by
-     `float64_rule`; timed beside the plain version and
-     `scaled_dot_product_attention` on the same bf16 inputs, and beside
-     their bound (one bf16 pass of Q K^T, two TF32 passes of P V, bf16
-     inputs over HBM); the 256-wide RAIN block's forward at T1 under the
+ 12. bf16: the bf16 compute policy. B2/B3 on bf16 operands (the TMA and
+     wgmma kernels of `csrc/block_attention_sm90.cu`) at T1 [128, 1024,
+     64] and the d 32 launch [128, 1024, 32], held to the plain version
+     run in float32 on the same inputs (widened exactly) at rtol = atol =
+     2e-5, and at scale 10 by `float64_rule`; timed beside the plain
+     version and `scaled_dot_product_attention` on the same bf16 inputs,
+     and beside their bound (one bf16 pass of Q K^T and two of P V, the
+     softmax's ex2 on the special-function units, bf16 inputs over HBM;
+     the bound of the earlier design, with P V in two TF32 passes, beside
+     it); the 256-wide RAIN block's forward at T1 under the
      policy (one bf16 B3 launch, and B2 on bf16 q, k, v once: the counts
      set to 0 just before and read just after), held to its dense path
      under the policy and timed against its float32 forward; a strict
@@ -189,8 +193,13 @@ RECON_ROWS = 256
 PEAKS = {"H100 SXM": (67e12, 3.35e12), "H100 PCIe": (51e12, 2.0e12),
          "H100 NVL": (60e12, 3.9e12)}
 TF32_PEAKS = {"H100 SXM": 495e12, "H100 PCIe": 378e12, "H100 NVL": 417e12}
-# bf16 on the tensor cores (dense), which bounds the bf16 kernels' Q K^T.
+# bf16 on the tensor cores (dense), which bounds the bf16 kernels' products.
 BF16_PEAKS = {"H100 SXM": 989e12, "H100 PCIe": 756e12, "H100 NVL": 835e12}
+# ex2 on the special-function units: 16 per clock per SM at the clock of
+# PEAKS' float32 rates (SXM 132 SMs at 1.98 GHz, PCIe 114 at 1.755, NVL 132
+# at 1.775), which bounds the bf16 kernels' softmax.
+EX2_PEAKS = {"H100 SXM": 132 * 16 * 1.98e9, "H100 PCIe": 114 * 16 * 1.755e9,
+             "H100 NVL": 132 * 16 * 1.775e9}
 # Device cycles (~20 ms) that `cuda_ms` holds the device for while the host
 # queues a round of calls: longer than the host takes to launch 50 calls of
 # the plain fused MLP version (8 kernels each).
@@ -290,12 +299,8 @@ def ptxas_report(log: str):
     report, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            entry = ln.split("'")[1]
-            inst = re.search(r"block_attention_(bf16_)?kernelILi(\d+)ELb([01])E", entry)
-            if inst:
-                entry = (("bf16 " if inst[1] else "") + f"d{inst[2]}"
-                         + (" entropy" if inst[3] == "1" else ""))
-            elif "tc_kernel" in entry:
+            entry = short_kernel_name(ln.split("'")[1])
+            if "tc_kernel" in entry:
                 entry = "tensor_core"
             elif inst := re.search(r"simt_kernelILi(\d+)E", entry):
                 entry = f"simt {inst[1]}"
@@ -303,6 +308,44 @@ def ptxas_report(log: str):
         elif entry is not None and ("registers" in ln or "spill" in ln):
             report[entry].append(ln.split("ptxas info    :")[-1].strip())
     return {name: "; ".join(lines) for name, lines in report.items()}
+
+
+def short_kernel_name(entry):
+    """An attention instantiation by head dim ("bf16 " before it for the
+    bf16 kernels, " entropy" after it for B3), as `ptxas_report` names it;
+    other names as they are."""
+    inst = re.search(r"block_attention_(sm90_|bf16_)?kernelILi(\d+)ELb([01])E", entry)
+    if not inst:
+        return entry
+    return ("bf16 " if inst[1] else "") + f"d{inst[2]}" + (" entropy" if inst[3] == "1" else "")
+
+
+def sass(lib):
+    """Each kernel's SASS instructions (`cuobjdump -sass`) as a list of
+    (opcode, line), by `short_kernel_name`."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    text = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    kernels, name = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            name = short_kernel_name(ln.split("Function :")[1].strip())
+            kernels[name] = []
+        elif name is not None and (op := re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                                                    ln)):
+            kernels[name].append((op[1], ln))
+    return kernels
+
+
+def sass_counts(lib, opcodes):
+    """{kernel: {opcode: count, ..., "max_register": n}} of a library's
+    SASS: `n` is the highest register it names (what `setmaxnreg` lets a
+    warpgroup use, where ptxas reports only the launch bound's share)."""
+    return {name: {**{op: sum(o == op for o, _ in insts) for op in opcodes},
+                   "max_register": max((int(r) for _, ln in insts
+                                        for r in re.findall(r"\bR(\d+)\b", ln)), default=0)}
+            for name, insts in sass(lib).items()}
 
 
 def close_enough(got, ref, rtol=RTOL, atol=ATOL):
@@ -1752,21 +1795,29 @@ BF16_ENT_TOL = 2.0 ** -6
 
 
 def attention_bound_bf16(part, bh, seq, d, entropy):
-    """Least time of one call of a bf16 kernel: Q K^T (2 bh seq^2 d FLOP)
-    in one bf16 pass and P V (2 bh seq^2 d) in two TF32 passes on the
-    tensor cores, beside the entropy's 2 bh seq^2 FLOP at the float32 rate
-    (the pipes overlap), against the bytes (bf16 q, k, v read once, float32
-    out and entropy written once) over HBM."""
+    """Least time of one call of a bf16 kernel as `block_attention_sm90.cu`
+    computes it: Q K^T (2 bh seq^2 d FLOP) in one bf16 pass and P V (2 bh
+    seq^2 d) in two, all on the tensor cores; the softmax's bh seq^2 ex2 on
+    the special-function units; the entropy's 2 bh seq^2 FLOP at the
+    float32 rate (the pipes overlap, so the largest term counts), against
+    the bytes (bf16 q, k, v read once, float32 out and entropy written
+    once) over HBM. `bound_ms_tf32_pv` is the bound of the earlier design,
+    P V in two TF32 passes (and no ex2 term)."""
     flop_rate, byte_rate = PEAKS[part]
     half = 2 * bh * seq * seq * d
     extra = 2 * bh * seq * seq if entropy else 0
     nbytes = 2 * 3 * bh * seq * d + 4 * (bh * seq * d + (bh * seq if entropy else 0))
-    ops_ms = max(half / BF16_PEAKS[part] + 2 * half / TF32_PEAKS[part],
-                 extra / flop_rate) * 1e3
+    tensor_ms = 3 * half / BF16_PEAKS[part] * 1e3
+    ex2_ms = bh * seq * seq / EX2_PEAKS[part] * 1e3
+    ops_ms = max(tensor_ms, ex2_ms, extra / flop_rate * 1e3)
     bytes_ms = nbytes / byte_rate * 1e3
-    return {"flops": 2 * half + extra, "bytes": nbytes, "ops_bound_ms": ops_ms,
+    tf32_pv_ms = max(half / BF16_PEAKS[part] + 2 * half / TF32_PEAKS[part],
+                     extra / flop_rate) * 1e3
+    return {"flops": 2 * half + extra, "bf16_pass_flops": 3 * half, "ex2": bh * seq * seq,
+            "bytes": nbytes, "tensor_ms": tensor_ms, "ex2_ms": ex2_ms, "ops_bound_ms": ops_ms,
             "bytes_bound_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms_tf32_pv": max(tf32_pv_ms, bytes_ms)}
 
 
 def bf16_attention_vs_plain(torch, ba, device):
@@ -2026,7 +2077,9 @@ def main() -> int:
           "card": card, "device_count": torch.cuda.device_count()})
 
     # 2. build: one nvcc per source, all started together --------------------
-    sources = {"fused_mlp4": fused_mlp.SOURCE, "block_attention": ba.SOURCE}
+    sources = {"fused_mlp4": fused_mlp.SOURCE,
+               "block_attention": ba.SOURCES[torch.float32],
+               "block_attention_bf16": ba.SOURCES[torch.bfloat16]}
 
     def timed_build(source):
         t = time.perf_counter()
@@ -2037,12 +2090,18 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:
         seconds = dict(zip(sources.values(), pool.map(timed_build, sources.values())))
     fused_mlp.build()
-    ba.build()
+    for dtype in ba.SOURCES:
+        ba.build(dtype)
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
     for kernel, source in sources.items():
-        log = _build.library_path(source).with_suffix(".log").read_text()
-        emit({"phase": "build", "kernel": kernel, "seconds": seconds[source],
-              "ptxas": ptxas_report(log)})
+        lib = _build.library_path(source)
+        report = {"phase": "build", "kernel": kernel, "seconds": seconds[source],
+                  "ptxas": ptxas_report(lib.with_suffix(".log").read_text())}
+        if source == ba.SOURCES[torch.bfloat16]:
+            report["sass"] = sass_counts(lib, ("HGMMA", "UTMALDG", "HMMA"))
+            check(all(c.get("HGMMA") and c.get("UTMALDG") for c in report["sass"].values()),
+                  f"a bf16 attention kernel without wgmma or TMA: {report['sass']}")
+        emit(report)
 
     # 3. kernels against plain -----------------------------------------------
     rng = np.random.default_rng(0)
@@ -2493,7 +2552,7 @@ def main() -> int:
         bound = t1[f"{key}_bound"]
         return {
             "name": f"{name}_bf16", "route": "cuda",
-            "source": "cvaegan_tpu_torch/csrc/block_attention.cu",
+            "source": "cvaegan_tpu_torch/csrc/block_attention_sm90.cu",
             "replaces": replaces, "launches": launches_,
             "training_launches": bf16["training_launches"][4 if entropy else 3],
             "max_abs_err": bf16_err[name],
@@ -2501,10 +2560,13 @@ def main() -> int:
             "inputs": "bfloat16", "shape": t1["shape"],
             "ms": t1[f"{key}_ms"], "plain_ms": t1[f"{key}_plain_ms"],
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bound_ms_tf32_pv": bound["bound_ms_tf32_pv"],
             "library_ms": t1["sdpa_ms"] if library else None,
             "d32": {"shape": d32["shape"], "ms": d32[f"{key}_ms"],
                     "plain_ms": d32[f"{key}_plain_ms"],
                     "bound_ms": d32[f"{key}_bound"]["bound_ms"],
+                    "bound_by": d32[f"{key}_bound"]["bound_by"],
+                    "bound_ms_tf32_pv": d32[f"{key}_bound"]["bound_ms_tf32_pv"],
                     "library_ms": d32["sdpa_ms"] if library else None}}
 
     b3_entry = attention_entry("block_attention_with_entropy",

@@ -57,17 +57,9 @@
 // 128 registers, so there each warp reads and splits its Q fragments from
 // shared memory per tile.
 //
-// Softmax and entropy keep the TPU kernels' numerics: running max from
-// -1e30, the scale applied after the product, out = acc / l. Scores are
-// prescaled by d^-0.5 log2(e) so that ex2.approx gives the exponentials;
-// m, and sl below, are then in units of log2. The entropy carries sl
-// relative to the running max, sl' = sum p (s - m), rescaled by
-// alpha (sl' + (m_old - m_new) l_old), so that H = log l - sl' / l with no
-// cancellation on peaked rows (scores ~ 300 at inputs of scale 10); the
-// one conversion back to nats is the ln 2 in the final line. l and sl are
-// per-thread partial sums (the rescale is uniform along a row), reduced
-// over the 4 lanes of a row once at the end; the row max reduces over
-// those lanes per tile.
+// Softmax and entropy keep the TPU kernels' numerics (`softmax_tile`
+// below; the pieces it shares with the bf16 kernel of
+// `block_attention_sm90.cu` are in `online_softmax.cuh`).
 //
 // Bound on an H100 SXM. Per call: 4 bh seq^2 d FLOP (QK^T and PV), done
 // three times over in TF32, plus 2 bh seq^2 for the entropy's p (s - m),
@@ -79,34 +71,13 @@
 // TF32 operands only K-major from shared memory, in its own swizzled
 // layout, so V would have to be transposed there and the split tiles laid
 // out for it, with warpgroup-wide products replacing the per-warp ones.
-// That is the next redesign step.
-//
-// bf16 operands (`block_attention_bf16`). The same two kernels for q, k, v
-// in bfloat16, as the JAX kernels run them under the bf16 compute policy
-// (the Pallas bodies are dtype-generic): S = Q K^T as jnp.dot(q, k.T,
-// preferred_element_type=f32) computes it, and P V with P in float32 and
-// V promoted to float32 (`cvaegan_tpu/kernels/block_attention.py:38,44,
-// 73,81`); out and ent are float32. A product of two bf16 values is exact
-// in float32, so Q K^T is one pass of mma.sync.m16n8k16 with bf16
-// operands and a float32 accumulator, no split. A bf16 value is exact in
-// TF32 (8 significant bits against 11), so V needs no low part and P V
-// takes two TF32 passes, p_hi v + p_lo v, folded per tile as above. The
-// softmax, the entropy carry and the output are the float32 kernel's.
-// Q, K and V are copied by 16-byte cp.async (8 values) straight into
-// their fragment-read layout, rows padded to D + 8 values (D / 2 + 4
-// words), so that the 32-bit reads of Q and K fragments (key g, word t)
-// and the 16-bit reads of V (key 2t, column g) fall on distinct banks;
-// nothing is split, so there is no landing area: K and V tiles of 4096
-// values (64 keys at d <= 64, 32 at d 128) are double-buffered, with one
-// __syncthreads per tile, and Q stays in registers (D / 4 words).
-// Shared memory: (128 + 4 kKeys)(D + 8) bf16, 69,632 bytes at d 128.
-// Bound on an H100 SXM: 2 bh seq^2 d FLOP of QK^T at the 989 TFLOP/s bf16
-// rate plus 2 bh seq^2 d of PV twice at the 495 TF32 rate (0.087 ms at
-// [128, 1024, 64]) against 6 bh seq d bytes read and 4 bh seq d written.
+// That is the next redesign step (the bf16-operand kernels took it:
+// `block_attention_sm90.cu`).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "online_softmax.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -114,29 +85,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kRows = 16 * kWarps;  // query rows per block
 constexpr int kThreads = 32 * kWarps;
-constexpr float kNegInit = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr unsigned kFull = 0xffffffffu;
-
-// 2^x by the special-function unit, as exp2f computes it but with
-// results below 2^-126 flushed to 0 (p that small adds nothing to l >= 1).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
 // Shared memory of one block, for head dim D.
 //   k4 [kKeys][KP] float4: K[key][8s + t] and K[key][8s + t + 4], split,
 //      at [key][4s + t]: one 16-byte load is a B fragment of Q K^T;
@@ -297,41 +245,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT][4], float (&m)[2], f
   }
 }
 
-// acc = alpha acc + pv for column tiles n0 .., by a rounded fmaf (see the
-// P V comment in the kernel).
-template <int NC, int DT>
-__device__ __forceinline__ void fold(float (&acc)[DT][4], const float (&pv)[NC][4], int n0,
-                                     const float (&alpha)[2]) {
-#pragma unroll
-  for (int n = 0; n < NC; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n0 + n][i] = fmaf(alpha[i / 2], acc[n0 + n][i], pv[n][i]);
-}
-
-// Stores rows `row_g` and `row_g` + 8 of out (and their entropy) from the
-// running sums, reduced over the 4 lanes of each row.
-template <int DT, bool ENT>
-__device__ __forceinline__ void store_rows(const float (&acc)[DT][4], const float (&l)[2],
-                                           const float (&sl)[2], float* out, float* ent,
-                                           size_t base, int head, int row_g, int seq, int t) {
-  constexpr int D = 8 * DT;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l_row = quad_sum(l[r]);
-    const float sl_row = ENT ? quad_sum(sl[r]) : 0.f;
-    const int row = row_g + 8 * r;
-    if (row >= seq) continue;
-    float* o = out + base + static_cast<size_t>(row) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-      *reinterpret_cast<float2*>(o + 8 * n) =
-          make_float2(acc[n][2 * r] / l_row, acc[n][2 * r + 1] / l_row);
-    // sl_row is in units of log2: ln 2 brings it back to nats.
-    if (ENT && t == 0)
-      ent[static_cast<size_t>(head) * seq + row] = logf(l_row) - kLn2 * sl_row / l_row;
-  }
-}
-
 template <int D, bool ENT>
 __global__ void __launch_bounds__(kThreads)
 block_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -446,174 +359,12 @@ block_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<DT, ENT>(acc, l, sl, out, ent, base, head, q0 + warp * 16 + g, seq, t);
 }
 
-// Shared memory of the bf16 kernel, for head dim D: the Q tile [kRows][P],
-// then two stages of {K, V} tiles [kKeys][P] each, bf16 in the inputs'
-// row-major layout with rows padded to P = D + 8 values (D / 2 + 4 words,
-// 4 mod 8 words for D >= 16), so that the fragment reads below fall on
-// distinct banks.
-template <int D>
-struct SmemBf16 {
-  // keys per tile: K and V tiles of at most 4096 values each
-  static constexpr int kKeys = 4096 / D < 64 ? 4096 / D : 64;
-  static constexpr int P = D + 8;
-  static constexpr int kTile = kKeys * P;
-  static constexpr size_t bytes = sizeof(uint16_t) * (kRows * P + 4 * kTile);
-};
-
-// Starts copying `rows` rows of a [seq, D] bf16 matrix from row `row0` into
-// `to` [rows][D + 8], 8 values per cp.async; rows at or past seq are
-// zero-filled.
-template <int D>
-__device__ __forceinline__ void copy_rows_bf16(uint16_t* to, const uint16_t* from, int row0,
-                                               int rows, int seq) {
-  constexpr int kVecs = D / 8, P = SmemBf16<D>::P;
-#pragma unroll
-  for (int idx = threadIdx.x; idx < rows * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = idx % kVecs;
-    const bool valid = row0 + r < seq;
-    cp_async16(to + r * P + 8 * c, from + static_cast<size_t>(valid ? row0 + r : 0) * D + 8 * c,
-               valid);
-  }
-}
-
-// Two consecutive bf16 values as one 32-bit register, the lower index in
-// the low half: an operand pair of the bf16 mma.
-__device__ __forceinline__ uint32_t pair(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A bf16 value as float32 (exact): its bits in the high half.
-__device__ __forceinline__ float widen(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
-
-// c += a b with bf16 operands and a float32 accumulator. Fragments (PTX
-// ISA, m16n8k16 .bf16; g = lane / 4, t = lane % 4), each register a pair
-// of columns (A) or rows (B):
-//   A (16 x 16)  a0 (g, 2t..2t+1)  a1 (g + 8, 2t..)  a2 (g, 2t+8..)  a3 (g + 8, 2t+8..)
-//   B (16 x 8)   b0 (2t..2t+1, g)  b1 (2t+8..2t+9, g)
-//   C (16 x 8)   as for m16n8k8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The float32 kernel's sweep on bf16 q, k, v (see the header): one bf16
-// pass for Q K^T, two TF32 passes for P V.
+// Launches the kernel for head dim D.
 template <int D, bool ENT>
-__global__ void __launch_bounds__(kThreads)
-block_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                            const uint16_t* __restrict__ v, float* __restrict__ out,
-                            float* __restrict__ ent, int seq, int q_tiles, float scale_log2) {
-  using S = SmemBf16<D>;
-  constexpr int kKeys = S::kKeys, P = S::P;
-  constexpr int DK = D / 16;     // depth steps of QK^T
-  constexpr int DT = D / 8;      // column tiles of PV
-  constexpr int KT = kKeys / 8;  // key tiles of QK^T, depth steps of PV
-  extern __shared__ float4 smem4[];
-  uint16_t* qs = reinterpret_cast<uint16_t*>(smem4);  // [kRows][P]
-  uint16_t* stages = qs + kRows * P;  // stage i: K at 2i kTile, V at (2i + 1) kTile
-
-  const int head = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * kRows;
-  const size_t base = static_cast<size_t>(head) * seq * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const uint16_t* qw = qs + warp * 16 * P;
-  const int tiles = (seq + kKeys - 1) / kKeys;
-
-  copy_rows_bf16<D>(qs, q + base, q0, kRows, seq);
-  copy_rows_bf16<D>(stages, k + base, 0, kKeys, seq);
-  copy_rows_bf16<D>(stages + S::kTile, v + base, 0, kKeys, seq);
-  cp_async_commit();
-
-  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f}, sl[2] = {0.f, 0.f};
-  float acc[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-  uint32_t qf[DK][4];
-
-  for (int tile = 0; tile < tiles; ++tile) {
-    const uint16_t* ks = stages + (tile & 1) * 2 * S::kTile;
-    const uint16_t* vs = ks + S::kTile;
-    cp_async_wait_all();  // this thread's copies of the tile have landed
-    // Every thread's copies have landed, and every warp is done with
-    // tile - 1, whose stage the next copy overwrites.
-    __syncthreads();
-    if (tile + 1 < tiles) {
-      uint16_t* next = stages + ((tile + 1) & 1) * 2 * S::kTile;
-      copy_rows_bf16<D>(next, k + base, (tile + 1) * kKeys, kKeys, seq);
-      copy_rows_bf16<D>(next + S::kTile, v + base, (tile + 1) * kKeys, kKeys, seq);
-      cp_async_commit();
-    }
-    if (tile == 0) {
-#pragma unroll
-      for (int d = 0; d < DK; ++d) {
-        const uint16_t* qr = qw + g * P + 16 * d + 2 * t;
-        qf[d][0] = pair(qr);
-        qf[d][1] = pair(qr + 8 * P);
-        qf[d][2] = pair(qr + 8);
-        qf[d][3] = pair(qr + 8 * P + 8);
-      }
-    }
-
-    // s[j]: scores of keys 8j + 2t, 8j + 2t + 1 for rows g, g + 8; B's
-    // column g is key 8j + g, its rows the depth pairs 2t and 2t + 8.
-    float s[KT][4];
-#pragma unroll
-    for (int j = 0; j < KT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DK; ++d)
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const uint16_t* kr = ks + (8 * j + g) * P + 16 * d + 2 * t;
-        mma_bf16(s[j], qf[d], pair(kr), pair(kr + 8));
-      }
-
-    float alpha[2];
-    softmax_tile<KT, ENT>(s, m, l, sl, alpha, tile * kKeys + 2 * t, seq, scale_log2);
-
-    // acc = alpha acc + P V as in the float32 kernel, with V exact in TF32:
-    // B's rows t and t + 4 are keys 2t and 2t + 1 of step j, column g.
-    constexpr int NC = DT < 8 ? DT : 8;
-#pragma unroll
-    for (int n0 = 0; n0 < DT; n0 += NC) {
-      float pv[NC][4];
-#pragma unroll
-      for (int n = 0; n < NC; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        uint32_t ph[4], pl[4];
-        const float a[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
-        split4(a, ph, pl);
-        const uint16_t* vr = vs + (8 * j + 2 * t) * P + 8 * n0 + g;
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          const float b0 = widen(vr[8 * n]), b1 = widen(vr[P + 8 * n]);
-          mma(pv[n], pl, b0, b1);
-          mma(pv[n], ph, b0, b1);
-        }
-      }
-      fold<NC, DT>(acc, pv, n0, alpha);
-    }
-  }
-
-  store_rows<DT, ENT>(acc, l, sl, out, ent, base, head, q0 + warp * 16 + g, seq, t);
-}
-
-// Launches `kernel` (inputs of type T) with `smem` bytes of shared memory.
-template <typename T, typename Kernel>
-int launch(Kernel kernel, size_t smem, const void* q, const void* k, const void* v,
-           float* out, float* ent, int bh, int seq, int d, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* out, float* ent, int bh,
+           int seq, cudaStream_t stream) {
+  auto kernel = block_attention_kernel<D, ENT>;
+  constexpr size_t smem = Smem<D>::bytes;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -623,41 +374,20 @@ int launch(Kernel kernel, size_t smem, const void* q, const void* k, const void*
   const long long blocks = static_cast<long long>(bh) * q_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), out, ent,
-      seq, q_tiles, static_cast<float>(kLog2e / sqrt(static_cast<double>(d))));
+      q, k, v, out, ent, seq, q_tiles, static_cast<float>(kLog2e / sqrt(static_cast<double>(D))));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool ENT>
-int launch_d(bool bf16, const void* q, const void* k, const void* v, float* out, float* ent,
-             int bh, int seq, cudaStream_t stream) {
-  if (bf16)
-    return launch<uint16_t>(block_attention_bf16_kernel<D, ENT>, SmemBf16<D>::bytes, q, k, v,
-                            out, ent, bh, seq, D, stream);
-  return launch<float>(block_attention_kernel<D, ENT>, Smem<D>::bytes, q, k, v, out, ent, bh,
-                       seq, D, stream);
-}
-
 template <bool ENT>
-int dispatch(bool bf16, const void* q, const void* k, const void* v, float* out, float* ent,
-             int bh, int seq, int d, cudaStream_t stream) {
+int dispatch(const float* q, const float* k, const float* v, float* out, float* ent, int bh,
+             int seq, int d, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_d<16, ENT>(bf16, q, k, v, out, ent, bh, seq, stream);
-    case 32: return launch_d<32, ENT>(bf16, q, k, v, out, ent, bh, seq, stream);
-    case 64: return launch_d<64, ENT>(bf16, q, k, v, out, ent, bh, seq, stream);
-    case 128: return launch_d<128, ENT>(bf16, q, k, v, out, ent, bh, seq, stream);
+    case 16: return launch<16, ENT>(q, k, v, out, ent, bh, seq, stream);
+    case 32: return launch<32, ENT>(q, k, v, out, ent, bh, seq, stream);
+    case 64: return launch<64, ENT>(q, k, v, out, ent, bh, seq, stream);
+    case 128: return launch<128, ENT>(q, k, v, out, ent, bh, seq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-int entry(bool bf16, const void* q, const void* k, const void* v, void* out, void* ent,
-          int bh, int seq, int d, void* stream) {
-  if (bh <= 0 || seq <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  if (ent != nullptr)
-    return dispatch<true>(bf16, q, k, v, o, static_cast<float*>(ent), bh, seq, d, s);
-  return dispatch<false>(bf16, q, k, v, o, nullptr, bh, seq, d, s);
 }
 
 }  // namespace
@@ -665,18 +395,18 @@ int entry(bool bf16, const void* q, const void* k, const void* v, void* out, voi
 extern "C" {
 
 // Launch on `stream` and return cudaGetLastError() (0 on success).
-// q, k, v: contiguous [bh, seq, d], 16-byte aligned, float32
-// (`block_attention_f32`) or bfloat16 (`block_attention_bf16`); out:
+// q, k, v: contiguous [bh, seq, d] float32, 16-byte aligned; out:
 // [bh, seq, d] float32; `ent` ([bh, seq] float32) selects the entropy
 // kernel when it is not null.
 int block_attention_f32(const void* q, const void* k, const void* v, void* out, void* ent,
                         int bh, int seq, int d, void* stream) {
-  return entry(false, q, k, v, out, ent, bh, seq, d, stream);
-}
-
-int block_attention_bf16(const void* q, const void* k, const void* v, void* out, void* ent,
-                         int bh, int seq, int d, void* stream) {
-  return entry(true, q, k, v, out, ent, bh, seq, d, stream);
+  if (bh <= 0 || seq <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+             *vf = static_cast<const float*>(v);
+  float* o = static_cast<float*>(out);
+  if (ent != nullptr) return dispatch<true>(qf, kf, vf, o, static_cast<float*>(ent), bh, seq, d, s);
+  return dispatch<false>(qf, kf, vf, o, nullptr, bh, seq, d, s);
 }
 
 const char* block_attention_error_string(int code) {

@@ -7,12 +7,14 @@ the outputs are float32 either way, as the JAX kernels return them.
 `block_attention` computes softmax(q k^T / sqrt(d)) v;
 `block_attention_with_entropy` also returns each row's attention entropy
 `[batch*heads, seq]` without materialising the probability matrix, which
-is what `MultiHeadSelfAttention` uses at long sequences. Both run the
-hand-written CUDA kernels of `cvaegan_tpu_torch/csrc/block_attention.cu`
-(design and bound in its header; the bf16 instantiations replace the same
-TPU kernels, `cvaegan_tpu/kernels/block_attention.py:30,56`, run on bf16
-operands), for head dims 16, 32, 64 and 128 and any seq >= 1, ragged or
-not: the kernels mask the ragged tails themselves.
+is what `MultiHeadSelfAttention` uses at long sequences. Both run
+hand-written CUDA kernels (design and bound in each source's header):
+float32 inputs those of `cvaegan_tpu_torch/csrc/block_attention.cu`
+(`mma.sync`), bf16 inputs those of `csrc/block_attention_sm90.cu` (TMA
+and `wgmma`; they replace the same TPU kernels,
+`cvaegan_tpu/kernels/block_attention.py:30,56`, run on bf16 operands),
+for head dims 16, 32, 64 and 128 and any seq >= 1, ragged or not: the
+kernels mask the ragged tails themselves.
 
 The wrappers take their plain PyTorch versions,
 `block_attention_reference` and `block_attention_with_entropy_reference`,
@@ -29,16 +31,17 @@ are forward-only: a call that would need a gradient raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from cvaegan_tpu_torch.kernels import _build
 
-SOURCE = "block_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
-#: input dtype -> the C entry that takes it
-ENTRIES = {torch.float32: "block_attention_f32", torch.bfloat16: "block_attention_bf16"}
+#: input dtype -> the source of its kernels and their C entry (each
+#: library also exports `block_attention_error_string`)
+SOURCES = {torch.float32: "block_attention.cu", torch.bfloat16: "block_attention_sm90.cu"}
+ENTRIES = {torch.float32: "block_attention_f32", torch.bfloat16: "block_attention_sm90_bf16"}
 #: score-matrix elements per chunk of heads in the plain versions (1 GiB
 #: of float32), so that a long sequence fits on the card
 PLAIN_CHUNK_ELEMENTS = 1 << 28
@@ -50,7 +53,7 @@ ENTROPY_LAUNCHES = 0
 BF16_LAUNCHES = 0
 BF16_ENTROPY_LAUNCHES = 0
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[torch.dtype, ctypes.CDLL] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -162,19 +165,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                            "in the JAX package); call it under torch.no_grad()")
 
 
-def build() -> ctypes.CDLL:
-    """Build (at first use) and load the kernels' library."""
-    global _lib
-    if _lib is None:
-        lib = _build.load(SOURCE)
+def build(dtype: torch.dtype) -> ctypes.CDLL:
+    """Build (at first use) and load the library of the kernels that take
+    `dtype` inputs."""
+    if dtype not in _libs:
+        lib = _build.load(SOURCES[dtype])
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ENTRIES.values():
-            getattr(lib, name).argtypes = [p] * 5 + [i] * 3 + [p]
-            getattr(lib, name).restype = i
+        entry = getattr(lib, ENTRIES[dtype])
+        entry.argtypes = [p] * 5 + [i] * 3 + [p]
+        entry.restype = i
         lib.block_attention_error_string.argtypes = [i]
         lib.block_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[dtype] = lib
+    return _libs[dtype]
 
 
 def _launch(q, k, v, with_entropy: bool):
@@ -192,7 +195,7 @@ def _launch(q, k, v, with_entropy: bool):
         if with_entropy else None
     if out.numel() == 0:
         return out, ent
-    lib = build()
+    lib = build(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, ENTRIES[q.dtype])(

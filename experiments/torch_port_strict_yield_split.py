@@ -24,7 +24,10 @@ port's on the JAX states, of the port's study rows of the same seeds
 (`experiments/results/torch_port_multiseed.jsonl`, mode `strict`) and of
 the JAX package's committed rows (`ours_multiseed.jsonl`, fitted on a
 TPU), with two-sided Mann-Whitney U p-values of the JAX CPU fits against
-the other two.
+the other two, and of the port's study rows against the committed ones.
+Which rows are which fits: `jax_rows` here are the JAX package's fits on
+a CPU, the port's study rows fits on an H100, the committed JAX rows
+fits on a TPU.
 """
 
 import argparse
@@ -90,7 +93,7 @@ def summarize(path: pathlib.Path) -> dict:
     # the need from the fixture: the JAX rows of seeds 0-9 carry a stale one
     port = [port_study[r["seed"]] / r["needed"] for r in rows]
     committed = [jax_study[r["seed"]] / r["needed"] for r in rows]
-    return {"seeds": [r["seed"] for r in rows],
+    return {"seeds": [r["seed"] for r in rows], "n": len(rows),
             "jax_fit_here_median": float(np.median(here)),
             "port_on_jax_state_median": float(np.median(
                 [r["port_total"] / r["needed"] for r in rows])),
@@ -99,7 +102,8 @@ def summarize(path: pathlib.Path) -> dict:
             "port_study_median": float(np.median(port)),
             "jax_committed_median": float(np.median(committed)),
             "p_here_vs_port_study": float(mannwhitneyu(here, port).pvalue),
-            "p_here_vs_jax_committed": float(mannwhitneyu(here, committed).pvalue)}
+            "p_here_vs_jax_committed": float(mannwhitneyu(here, committed).pvalue),
+            "p_port_study_vs_jax_committed": float(mannwhitneyu(port, committed).pvalue)}
 
 
 def main() -> int:

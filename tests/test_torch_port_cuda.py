@@ -291,6 +291,34 @@ def test_bf16_kernels_match_plain(device, d, scale):
             assert ratio <= 1.0, (seq, err, ratio)
 
 
+def test_bf16_kernels_hold_the_tolerance_at_seq_8192(device):
+    """Error grows with the number of keys a row sums over: at seq 8192
+    (64 key tiles) both bf16 kernels stay inside the unit-scale tolerance."""
+    q, k, v = (t.bfloat16() for t in _qkv(2, 8192, 64, device, seed=8192))
+    got = block_attention.block_attention(q, k, v)
+    out, ent = block_attention.block_attention_with_entropy(q, k, v)
+    want_out, want_ent = block_attention.block_attention_with_entropy_reference(q, k, v)
+    for a, b in ((got, want_out), (out, want_out), (ent, want_ent)):
+        torch.testing.assert_close(a, b, **ATTN_TOL)
+
+
+def test_bf16_kernels_never_read_across_heads(device):
+    """Head 1's k and v are NaN; a ragged tile at the end of heads 0 and 2
+    (seq 129) must read none of head 1's rows, so heads 0 and 2 come out
+    finite and match the plain version."""
+    for d in block_attention.HEAD_DIMS:
+        q, k, v = (t.bfloat16() for t in _qkv(3, 129, d, device, seed=d))
+        k[1] = float("nan")
+        v[1] = float("nan")
+        got = block_attention.block_attention(q, k, v)
+        out, ent = block_attention.block_attention_with_entropy(q, k, v)
+        want_out, want_ent = block_attention.block_attention_with_entropy_reference(q, k, v)
+        for h in (0, 2):
+            for a, b in ((got[h], want_out[h]), (out[h], want_out[h]), (ent[h], want_ent[h])):
+                assert torch.isfinite(a).all(), (d, h)
+                torch.testing.assert_close(a, b, **ATTN_TOL)
+
+
 def test_bf16_kernels_reject_mixed_dtypes(device):
     q, k, v = _qkv(2, 128, 32, device)
     before = (block_attention.BF16_LAUNCHES, block_attention.BF16_ENTROPY_LAUNCHES)
