@@ -139,7 +139,23 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
      (captured = eager bitwise), and whether cuBLAS takes a
      reduced-precision bf16 reduction at the fit's GEMM shapes (the flag
      `allow_bf16_reduced_precision_reduction` flipped: reported, not
-     gated). No kernel launches on those fits.
+     gated). No kernel launches on those fits;
+ 13. mesh: the multi-device layer (`cvaegan_tpu_torch/parallel/`) on a
+     1-rank NCCL process group (`distributed.initialize` at a loopback
+     address, `global_mesh()`: {'data': 1, 'model': 1}): from one state
+     with drawn Adam moments, a captured strict CVAE-GAN epoch at full
+     width without the mesh and one under `use_mesh`, whose BatchNorm and
+     gradient all-reduces are captured inside the graph (the first ones
+     run in the warm-up, before capture), held to each other at
+     MESH_RTOL, MESH_ATOL, with each replay's device time by CUDA events,
+     the collectives one meshed epoch issues, and the NCCL kernels per
+     replay by `torch.profiler`; `SeedBank(CVAEGAN, seeds=range(4),
+     mesh=mesh)` for 2 epochs against the same bank without a mesh, per
+     replica; `ring_attention` on the 1-rank ring at T1 [128, 1024, 64]
+     float32, with and without entropy (its KV rotation a NCCL send to its
+     own rank), held to the dense plain versions and to B2/B3 at ATTN_TOL
+     and timed beside them; then `destroy_process_group()`. A capture of
+     the collectives that fails raises: no meshed fit falls back to eager.
 
 Each phase prints one JSON line; then the `kernels` line, the card's name
 and power limit as `nvidia-smi` gives them, and as the last line
@@ -262,6 +278,14 @@ BANK_FAMILY = ("RAIN_GAN", "SNGAN", "CTGAN", "QG_SMOTE", "TMGGAN")
 BANK_FAMILY_MIXES = (0, 3)
 BANK_FAMILY_K = 16
 BANK_FAMILY_TIMING_EPOCHS = 2
+# The mesh phase: on one rank the meshed epoch computes what the plain one
+# does (its all-reduces sum one term, its weights are 1), but takes its
+# BatchNorm moments as all-reduced sums over a count where the plain epoch
+# takes means; both start from the same drawn Adam moments (so no
+# exactly-zero gradient's rounding is blown up by Adam's eps), and they are
+# held at the captured-against-eager tolerance.
+MESH_RTOL, MESH_ATOL = TRAIN_RTOL, TRAIN_ATOL
+MESH_BANK_K, MESH_BANK_EPOCHS = 4, 2
 JAX_STRICT_RECON_LAST50 = (0.16611650466918945, 0.1633944422006607,
                            0.16289449065923692, 0.16205778270959853,
                            0.1620414972305298)
@@ -659,7 +683,7 @@ def state_tensors(model):
     return [t.detach() for t in model._static_tensors()]
 
 
-def compare_fits(torch, a, b):
+def compare_fits(torch, a, b, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
     """(max abs difference, worst err / tolerance, bitwise equal) of two
     trainers' loss histories and state tensors."""
     pairs = [(torch.tensor(a.loss_history[k], dtype=torch.float64),
@@ -667,7 +691,7 @@ def compare_fits(torch, a, b):
     pairs += [(x.double(), y.double()) for x, y in zip(state_tensors(a), state_tensors(b))]
     err = ratio = 0.0
     for x, y in pairs:
-        e, r = close_enough(x, y, TRAIN_RTOL, TRAIN_ATOL)
+        e, r = close_enough(x, y, rtol, atol)
         err, ratio = max(err, e), max(ratio, r)
     return err, ratio, all(torch.equal(x, y) for x, y in pairs)
 
@@ -2049,6 +2073,161 @@ def bf16_phase(torch, F, tp, tconfig, ds, make_ds, ba, fused_mlp, counter, part,
     return report, err, stats, timing, path_launches
 
 
+def nccl_kernels(torch, fn, calls: int = 3):
+    """(NCCL kernels per call, device ops per call) of `fn` in a
+    `torch.profiler` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    nccl = sum(e.count for e in on_device if "nccl" in e.key.lower())
+    return nccl / calls, sum(e.count for e in on_device) / calls
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(torch, tp, tconfig, ds, ba, part, card):
+    """The `mesh` phase (13). Returns its report."""
+    import torch.distributed as dist
+
+    from cvaegan_tpu_torch.kernels import ring_attention as ra
+    from cvaegan_tpu_torch.parallel import distributed
+    from cvaegan_tpu_torch.parallel import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    distributed.initialize(coordinator_address=f"127.0.0.1:{free_port()}",
+                           num_processes=1, process_id=0)
+    init_seconds = time.perf_counter() - t0
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"the process group is {dist.get_backend()} of {dist.get_world_size()}")
+    mesh = distributed.global_mesh()
+    check(mesh.shape == {"data": 1, "model": 1}, f"global mesh {mesh.shape}")
+    report = {"backend": dist.get_backend(), "mesh": mesh.shape,
+              "init_seconds": init_seconds, "nccl": ".".join(
+                  str(v) for v in torch.cuda.nccl.version())}
+    try:
+        # one captured strict epoch from one state, without and with the mesh
+        def fitted(use):
+            m = tp.CVAEGAN(seed=0, device="cuda", settings=train_settings(tconfig, 1))
+            m.verbose = False
+            with mesh_lib.use_mesh(mesh if use else None):
+                m._prepare(ds)
+                draw_moments(torch, m, 0)
+                mesh_lib.COLLECTIVES = 0
+                m._fit_prepared(1)
+            torch.cuda.synchronize()
+            return m, mesh_lib.COLLECTIVES
+
+        plain, plain_collectives = fitted(False)
+        meshed, fit_collectives = fitted(True)
+        check(plain_collectives == 0, f"a fit without a mesh issued {plain_collectives}")
+        check(meshed._graph is not None and meshed._graph[0][1] is mesh,
+              "the meshed fit did not replay a capture keyed by its mesh")
+        err, ratio, bitwise = compare_fits(torch, plain, meshed, MESH_RTOL, MESH_ATOL)
+        check(ratio <= 1.0, f"meshed and plain epochs disagree ({ratio} of the tolerance)")
+        replays = []
+        for m in (plain, meshed):
+            graph = m._graph[1]
+
+            def replay(m=m, graph=graph):
+                m._epoch_t.fill_(1)
+                graph.replay()
+            replays.append(replay)
+        (plain_ms, mesh_ms), rounds = cuda_ms(torch, replays, iters=5, reps=4, warmup=1)
+        nccl_per_replay, ops_per_replay = nccl_kernels(torch, replays[1])
+        _, plain_ops = nccl_kernels(torch, replays[0])
+        with mesh_lib.use_mesh(mesh), mesh_lib.data_parallel(meshed.gan_cfg.batch_size):
+            mesh_lib.COLLECTIVES = 0
+            meshed._epoch()  # eager: the collectives one epoch issues
+            per_epoch = mesh_lib.COLLECTIVES
+        torch.cuda.synchronize()
+        report["epoch"] = {
+            "rtol": MESH_RTOL, "atol": MESH_ATOL, "max_abs_diff": err,
+            "worst_err_over_tol": ratio, "bitwise": bitwise,
+            "epoch0": {k: v[0] for k, v in meshed.loss_history.items()},
+            "replay_device_ms": {"plain": plain_ms, "mesh": mesh_ms},
+            "replay_rounds": {"plain": rounds[0], "mesh": rounds[1]},
+            "collectives_per_epoch": per_epoch,
+            "collectives_in_fit_with_warm_up_and_capture": fit_collectives,
+            "steps_per_epoch": meshed._steps_per_epoch(),
+            "nccl_kernels_per_replay": nccl_per_replay,
+            "device_ops_per_replay": {"plain": plain_ops, "mesh": ops_per_replay}}
+
+        # SeedBank(mesh=): one data rank trains all K and gathers them
+        def bank(use):
+            b = tp.SeedBank(tp.CVAEGAN, list(range(MESH_BANK_K)),
+                            settings=train_settings(tconfig, MESH_BANK_EPOCHS),
+                            device="cuda", mesh=mesh if use else None)
+            for t in b.trainers:
+                t.verbose = False
+            b.fit(ds)
+            torch.cuda.synchronize()
+            return b
+
+        plain_bank, mesh_bank = bank(False), bank(True)
+        worst, bank_bitwise = 0.0, True
+        for a, b in zip(plain_bank.trainers, mesh_bank.trainers):
+            _, r, bw = compare_fits(torch, a, b)
+            worst, bank_bitwise = max(worst, r), bank_bitwise and bw
+        check(worst <= 1.0, f"the meshed bank's replicas disagree with the plain bank's "
+              f"({worst})")
+        report["seed_bank"] = {"k": MESH_BANK_K, "epochs": MESH_BANK_EPOCHS,
+                               "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL,
+                               "worst_err_over_tol": worst, "bitwise": bank_bitwise,
+                               "steps_per_sec": {"plain": plain_bank.steps_per_sec,
+                                                 "mesh": mesh_bank.steps_per_sec}}
+
+        # ring attention on the 1-rank ring at T1
+        gd = torch.Generator(device="cuda").manual_seed(13)
+        bh, seq = T1[0] * HEADS, T1[1]
+        q, k, v = (torch.randn(bh, seq, 64, generator=gd, device="cuda") for _ in range(3))
+        with torch.no_grad():
+            out, ent = ra.ring_attention(q, k, v, mesh, with_entropy=True)
+            out_only = ra.ring_attention(q, k, v, mesh)
+            refs = {"plain": (ba.reference_attention(q, k, v),
+                              ba.reference_attention_entropy(q, k)),
+                    "b2_b3": ba.block_attention_with_entropy(q, k, v)}
+            b2 = ba.block_attention(q, k, v)
+            ring_err = {}
+            for name, (ref_out, ref_ent) in refs.items():
+                ring_err[name] = {
+                    "out": close_enough(out, ref_out, ATTN_TOL, ATTN_TOL),
+                    "entropy": close_enough(ent, ref_ent, ATTN_TOL, ATTN_TOL),
+                    "out_without_entropy": close_enough(
+                        out_only, b2 if name == "b2_b3" else ref_out, ATTN_TOL, ATTN_TOL)}
+            worst = max(r for errs in ring_err.values() for _, r in errs.values())
+            check(worst <= 1.0, f"ring attention disagrees ({ring_err})")
+            times, rounds = cuda_ms(torch, [
+                lambda: ra.ring_attention(q, k, v, mesh),
+                lambda: ba.block_attention(q, k, v),
+                lambda: ra.ring_attention(q, k, v, mesh, with_entropy=True),
+                lambda: ba.block_attention_with_entropy(q, k, v)],
+                iters=5, reps=4, warmup=2)
+        keys = ("ring_ms", "b2_ms", "ring_entropy_ms", "b3_ms")
+        report["ring_attention"] = {
+            "shape": [bh, seq, 64], "tol": ATTN_TOL, "err": ring_err,
+            **dict(zip(keys, times)), "rounds": dict(zip(keys, rounds)),
+            "b2_bound": attention_bound(part, bh, seq, 64, entropy=False)["bound_ms"],
+            "b3_bound": attention_bound(part, bh, seq, 64, entropy=True)["bound_ms"]}
+    finally:
+        dist.destroy_process_group()
+    report["destroyed"] = not dist.is_initialized()
+    check(report["destroyed"], "the process group outlived the phase")
+    return report
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -2522,6 +2701,12 @@ def main() -> int:
     counter.restore()
     emit({"phase": "bf16", "card": card, "peaks_of": part, **bf16,
           "wall_seconds": time.perf_counter() - t0})
+
+    # 13. the device mesh --------------------------------------------------
+    # (its B2/B3 launches compare ring attention with them: none is counted)
+    t0 = time.perf_counter()
+    mesh = mesh_phase(torch, tp, tconfig, ds, ba, part, card)
+    emit({"phase": "mesh", "card": card, **mesh, "wall_seconds": time.perf_counter() - t0})
     training_launches = tuple(sum(n) for n in zip(training_launches, family_train,
                                                   bank_train, bank_family_train,
                                                   streamed_launches))

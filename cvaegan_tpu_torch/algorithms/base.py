@@ -86,6 +86,8 @@ from cvaegan_tpu_torch.data.tabular import TabularDataset
 from cvaegan_tpu_torch.kernels import fused_mlp as fused
 from cvaegan_tpu_torch.models import layers, mlp
 from cvaegan_tpu_torch.models.layers import forward_with, one_hot
+from cvaegan_tpu_torch.parallel import mesh as mesh_lib
+from cvaegan_tpu_torch.parallel.mesh import shard_leading
 from cvaegan_tpu_torch.utils.checkpoint import save_checkpoint
 from cvaegan_tpu_torch.utils.profiling import nan_debug_active
 
@@ -314,15 +316,15 @@ class GenerativeTrainer:
                                          data["samples"], bs)
         x = sample_class_batch(self.generator, data["index"], data["samples"],
                                class_id, bs)
-        return x, self._labels(class_id, bs)
+        return x, shard_leading(self._labels(class_id, bs))
 
     def _sample_labels(self, class_id: Optional[int]) -> torch.Tensor:
         """Labels for updates that need no real batch: the target class in
         strict mode, uniform over the present classes in balanced_mode."""
         bs = self.gan_cfg.batch_size
         if self.balanced_mode:
-            return present_labels(self.generator, (bs,), self._data["index"])
-        return self._labels(class_id, bs)
+            return shard_leading(present_labels(self.generator, (bs,), self._data["index"]))
+        return shard_leading(self._labels(class_id, bs))
 
     def _random_batch(self):
         """(x_real, labels): a uniform batch over the whole train set, for
@@ -413,6 +415,17 @@ class GenerativeTrainer:
                                                          device=self.device))
         if self.state is None:
             self.state = self._build_state()
+        mesh = mesh_lib.current_mesh()
+        if mesh is not None:
+            self._sync_ranks(mesh)
+
+    def _sync_ranks(self, mesh) -> None:
+        """Give every rank of `mesh` the first rank's networks, optimizer
+        state and generator state: then each rank holds one model and
+        draws one global batch."""
+        mesh_lib.broadcast(self._static_tensors()[:-1], mesh)
+        mesh_lib.broadcast_generator(self.generator, mesh)
+        self._clear_gen_caches()
 
     def _set_data(self, samples: np.ndarray, labels: np.ndarray, index: ClassIndex) -> None:
         """Give the epoch its data. Where the shapes match the data held,
@@ -473,6 +486,17 @@ class GenerativeTrainer:
 
     def _prior(self, num: int) -> torch.Tensor:
         return self._normal((num, self.gan_cfg.z_size))
+
+    def _z_batch(self) -> torch.Tensor:
+        """Prior z of one training batch: this data rank's rows under a
+        mesh (`shard_leading`, as the JAX package's steps shard theirs)."""
+        return shard_leading(self._prior(self.gan_cfg.batch_size))
+
+    def _eps_batch(self) -> torch.Tensor:
+        """Reparameterisation noise of one training batch: this data rank's
+        rows under a mesh (`local_rows`; the JAX package leaves this draw to
+        GSPMD)."""
+        return mesh_lib.local_rows(self._prior(self.gan_cfg.batch_size))
 
     # ------------------------------------------------------------------ fit
     def fit(self, dataset, eager: bool = False) -> None:
@@ -555,6 +579,8 @@ class GenerativeTrainer:
             self._set_data(np.asarray(xw, np.float32), labels, index)
             if self.state is None:
                 self.state = self._build_state()
+                if mesh_lib.current_mesh() is not None:
+                    self._sync_ranks(mesh_lib.current_mesh())
             self._fit_prepared(epochs_per_window, eager=eager)
             n_windows += 1
         if n_windows == 0:
@@ -567,8 +593,15 @@ class GenerativeTrainer:
         each `epoch_chunk` epochs come to the host in one transfer, after
         which a checkpoint is saved if `checkpoint_dir` is set and the
         chunk hook runs. The plain epoch runs on the CPU, with
-        `eager=True` and inside `nan_debug()` (a graph cannot raise)."""
+        `eager=True` and inside `nan_debug()` (a graph cannot raise).
+        Under a mesh (`parallel.mesh.use_mesh`) the epochs run data
+        parallel over its 'data' axis (`mesh.data_parallel`), with their
+        collectives inside the captured epoch on CUDA."""
         self._require_state()
+        with mesh_lib.data_parallel(self.gan_cfg.batch_size):
+            self._run_epochs(epochs, eager)
+
+    def _run_epochs(self, epochs: int, eager: bool) -> None:
         chunk = max(1, min(self.epoch_chunk, epochs))
         if eager or self.device.type != "cuda" or nan_debug_active():
             run = self._epoch
@@ -626,18 +659,18 @@ class GenerativeTrainer:
 
     def _capture_key(self):
         cfg = self.gan_cfg
-        return (self._policy_key(), id(self.state), id(self._data["samples"]),
-                self.balanced_mode,
+        return (self._policy_key(), mesh_lib.current_mesh(), id(self.state),
+                id(self._data["samples"]), self.balanced_mode,
                 tuple(self._class_rounds()), self._pattern(),
                 cfg.batch_size, cfg.d_loop_num, cfg.c_loop_num, cfg.g_loop_num,
                 tuple(sorted(self.hparams.items())), self.ema_decay)
 
     def _captured_epoch(self):
         """The replay of this trainer's captured epoch, capturing it first
-        unless a capture for the same policy, state, data tensors, mode,
-        present classes and settings is kept (at most `MAX_GRAPHS`, the oldest
-        dropped first). The warm-up's effects on the state and on every
-        generator are undone before the capture."""
+        unless a capture for the same policy, mesh (or none), state, data
+        tensors, mode, present classes and settings is kept (at most
+        `MAX_GRAPHS`, the oldest dropped first). The warm-up's effects on
+        the state and on every generator are undone before the capture."""
         key = self._capture_key()
         if key in self._graphs:
             self._graph = (key, self._graphs[key])

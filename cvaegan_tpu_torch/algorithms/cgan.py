@@ -66,12 +66,11 @@ class CGAN(GenerativeTrainer):
         return {k: v.detach() for k, v in parts.items()}
 
     def _round(self, class_id, epoch, counts):
-        bs = self.gan_cfg.batch_size
         lam = self._lambda_class(epoch)
         for _ in range(counts["d"]):
-            self._d_step(*self._sample_batch(class_id), self._prior(bs))
+            self._d_step(*self._sample_batch(class_id), self._z_batch())
         for _ in range(counts["c"]):
-            self._c_step(*self._sample_batch(class_id), self._prior(bs))
+            self._c_step(*self._sample_batch(class_id), self._z_batch())
         for _ in range(counts["g"]):
-            out = self._g_step(self._sample_labels(class_id), self._prior(bs), lam)
+            out = self._g_step(self._sample_labels(class_id), self._z_batch(), lam)
         return out

@@ -37,6 +37,7 @@ from cvaegan_tpu_torch.core import losses
 from cvaegan_tpu_torch.core.state import apply_eval, apply_train, grad_update, init_net
 from cvaegan_tpu_torch.models import ctgan as ctgan_models
 from cvaegan_tpu_torch.models.layers import state_frozen
+from cvaegan_tpu_torch.parallel.mesh import local_rows
 
 
 class CTGAN(GenerativeTrainer):
@@ -62,9 +63,12 @@ class CTGAN(GenerativeTrainer):
         return {"d": self.d_loop_fixed, "c": self.gan_cfg.c_loop_num, "g": 1}
 
     def _mask(self, rows: int) -> torch.Tensor:
-        """A training column mask drawn from the trainer's generator."""
-        return ctgan_models.random_column_mask(self.generator, rows, self.feature_num,
+        """A training column mask of `rows` (one or two batches) drawn from
+        the trainer's generator: this data rank's rows of each batch under
+        a mesh (`local_rows`)."""
+        mask = ctgan_models.random_column_mask(self.generator, rows, self.feature_num,
                                                self.device)
+        return local_rows(mask, rows // self.gan_cfg.batch_size)
 
     # ------------------------------------------------------------- steps
     def _fake(self, z, y, mask) -> torch.Tensor:
@@ -136,13 +140,13 @@ class CTGAN(GenerativeTrainer):
         lam = self._lambda_class(epoch)
         for _ in range(counts["d"]):
             x_real, y = self._sample_batch(class_id)
-            alpha = self._uniform((bs, 1))
-            d_out = self._d_step(x_real, y, self._prior(bs), self._mask(bs),
+            alpha = local_rows(self._uniform((bs, 1)))
+            d_out = self._d_step(x_real, y, self._z_batch(), self._mask(bs),
                                  self._mask(2 * bs), self._mask(bs), alpha)
         for _ in range(counts["c"]):
-            self._c_step(*self._sample_batch(class_id), self._prior(bs), self._mask(bs))
+            self._c_step(*self._sample_batch(class_id), self._z_batch(), self._mask(bs))
         for _ in range(counts["g"]):
-            out = self._g_step(self._sample_labels(class_id), self._prior(bs),
+            out = self._g_step(self._sample_labels(class_id), self._z_batch(),
                                self._mask(bs), self._mask(bs), lam)
         return {**d_out, **out}
 

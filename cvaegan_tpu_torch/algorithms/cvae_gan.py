@@ -94,20 +94,19 @@ class CVAEGAN(GenerativeTrainer):
     # ------------------------------------------------------------- epoch
     def _g_inputs(self, class_id: Optional[int]):
         x_real, y = self._sample_batch(class_id)
-        z_prior = self._prior(self.gan_cfg.batch_size)
-        eps = self._prior(self.gan_cfg.batch_size)
+        z_prior = self._z_batch()
+        eps = self._eps_batch()
         return x_real, y, z_prior, eps
 
     def _round(self, class_id, epoch, counts):
         """D, C, then G steps on the class (`cvae_gan.py:230-262` of the
         JAX package); every batch, z and eps drawn from the trainer's
         generator."""
-        bs = self.gan_cfg.batch_size
         lam = self._lambda_class(epoch)
         for _ in range(counts["d"]):
-            self._d_step(*self._sample_batch(class_id), self._prior(bs))
+            self._d_step(*self._sample_batch(class_id), self._z_batch())
         for _ in range(counts["c"]):
-            self._c_step(*self._sample_batch(class_id), self._prior(bs))
+            self._c_step(*self._sample_batch(class_id), self._z_batch())
         for _ in range(counts["g"]):
             out = self._g_step(*self._g_inputs(class_id), lam)
         return out

@@ -60,12 +60,11 @@ class GAN(UnconditionalTrainer):
         return {k: v.detach() for k, v in parts.items()}
 
     def _round(self, class_id, epoch, counts):
-        bs = self.gan_cfg.batch_size
         for _ in range(counts["d"]):
             x_real, _ = self._random_batch()
-            self._d_step(x_real, None, self._prior(bs))
+            self._d_step(x_real, None, self._z_batch())
         for _ in range(counts["c"]):
             self._c_step(*self._random_batch())
         for _ in range(counts["g"]):
-            out = self._g_step(self._prior(bs))
+            out = self._g_step(self._z_batch())
         return out

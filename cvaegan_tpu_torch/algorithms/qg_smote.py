@@ -51,6 +51,7 @@ from cvaegan_tpu_torch.models.quantile import (
     QuantileRegressor,
     sample_from_quantiles,
 )
+from cvaegan_tpu_torch.parallel.mesh import local_rows
 
 QUANTILE_LEVELS = (0.25, 0.5, 0.75)
 
@@ -150,15 +151,15 @@ class QG_SMOTE(GenerativeTrainer):
         lam = self._lambda_class(epoch)
         for _ in range(counts["d"]):
             x_real, y = self._sample_batch(class_id)
-            self._d_step(x_real, y, self._quantile_z(x_real, y, self._alpha(bs)))
+            self._d_step(x_real, y, self._quantile_z(x_real, y, local_rows(self._alpha(bs))))
         for _ in range(counts["c"]):
             x_real, y = self._sample_batch(class_id)
-            self._c_step(x_real, y, self._quantile_z(x_real, y, self._alpha(bs)))
+            self._c_step(x_real, y, self._quantile_z(x_real, y, local_rows(self._alpha(bs))))
         for _ in range(counts["q"]):
             q_loss = self._qr_step(*self._sample_batch(class_id))
         for _ in range(counts["g"]):
             x_real, y = self._sample_batch(class_id)
-            out = self._g_step(x_real, y, self._alpha(bs), self._prior(bs), lam)
+            out = self._g_step(x_real, y, local_rows(self._alpha(bs)), self._z_batch(), lam)
         return {"quantile_loss": q_loss, **out}
 
     # --------------------------------------------------------- generation

@@ -145,15 +145,14 @@ class RAIN_GAN(GenerativeTrainer):
     def _round(self, class_id: Optional[int], epoch, counts):
         """D, C, then E+G steps on the class (`:201-221`); the losses are
         the last G step's."""
-        bs = self.gan_cfg.batch_size
         lam = self._lambda_class(epoch)
         for _ in range(counts["d"]):
-            self._d_step(*self._sample_batch(class_id), self._prior(bs))
+            self._d_step(*self._sample_batch(class_id), self._z_batch())
         for _ in range(counts["c"]):
-            self._c_step(*self._sample_batch(class_id), self._prior(bs))
+            self._c_step(*self._sample_batch(class_id), self._z_batch())
         for _ in range(counts["g"]):
             x_real, y = self._sample_batch(class_id)
-            out = self._g_step(x_real, y, self._prior(bs), self._prior(bs), lam)
+            out = self._g_step(x_real, y, self._z_batch(), self._eps_batch(), lam)
         return out
 
     @torch.no_grad()

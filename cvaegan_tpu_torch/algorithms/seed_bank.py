@@ -37,8 +37,14 @@ What each replica sees is its serial fit's:
 After `fit`, `trainers[k]` is a full trainer of `seeds[k]` with the whole
 per-trainer API. Epoch-cadenced host hooks (`_on_chunk_end`: RAIN-GAN's
 attention history, TMG-GAN's scatters) are skipped in bank mode, as in
-the JAX package. Sharding the replica axis over
-devices (`mesh=`) is not ported (ROADMAP A21).
+the JAX package.
+
+With `mesh=` (a `parallel.mesh.Mesh`) the replicas are split over the
+mesh's 'data' axis, as the JAX package shards the replica axis: each data
+rank trains its K/n replicas as one bank, with no collective inside the
+epoch, and at the end of `fit` every replica's state, optimizer state,
+generator state and loss history are all-gathered, so that `trainers[k]`
+on every rank is replica k.
 
     bank = SeedBank(CVAEGAN, seeds=range(16), balanced_mode=True)
     trainers = bank.fit(datasets)          # one dataset, or one per seed
@@ -60,6 +66,7 @@ from cvaegan_tpu_torch.core import config as config_lib
 from cvaegan_tpu_torch.core.state import Adam
 from cvaegan_tpu_torch.data.sampler import INT32_MAX
 from cvaegan_tpu_torch.models import banked
+from cvaegan_tpu_torch.parallel import mesh as mesh_lib
 
 
 class _Banked:
@@ -174,9 +181,14 @@ class SeedBank:
         if len(seeds) == 0:
             raise ValueError("SeedBank needs at least one seed")
         if mesh is not None:
-            raise NotImplementedError(
-                "SeedBank(mesh=...): sharding the replica axis over devices is "
-                "not ported yet (ROADMAP A21)")
+            if not isinstance(mesh, mesh_lib.Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+            n_data = mesh.shape.get("data", 1)
+            if len(seeds) % n_data:
+                raise ValueError(
+                    f"{len(seeds)} seeds do not divide the mesh's "
+                    f"'data' axis ({n_data})")
+        self.mesh = mesh
         self.seeds = list(seeds)
         self.settings = settings or config_lib.settings
         # `ema_filter` only where asked for: TMG-GAN's trainer takes none
@@ -194,6 +206,13 @@ class SeedBank:
         #: the banked trainer, kept across fits so that a later fit can
         #: replay the same captured epoch
         self._bank = None
+        #: the replicas this rank trains: all of them, or its data rank's
+        #: share under a mesh
+        self._held = self.trainers
+        if mesh is not None:
+            per = len(self.seeds) // mesh.shape["data"]
+            lo = mesh.local_rank("data") * per
+            self._held = self.trainers[lo:lo + per]
 
     # ------------------------------------------------------------------ fit
     def fit(self, datasets, eager: bool = False) -> List[GenerativeTrainer]:
@@ -203,34 +222,60 @@ class SeedBank:
 
         Calling `fit` again continues training from the trained replica
         states, as a trainer's `fit` does. On CUDA each epoch is a replay
-        of one captured CUDA graph; `eager=True` runs the plain version."""
+        of one captured CUDA graph; `eager=True` runs the plain version.
+        Under `mesh=` every rank of the mesh calls it."""
         t0 = time.time()
         if not isinstance(datasets, (list, tuple)):
             datasets = [datasets] * len(self.trainers)
         if len(datasets) != len(self.trainers):
             raise ValueError(f"{len(self.trainers)} seeds but {len(datasets)} datasets")
-        for t, ds in zip(self.trainers, datasets):
-            t._prepare(ds)
-        shapes = {tuple(t._data["samples"].shape) for t in self.trainers}
-        if len(shapes) != 1:
-            raise ValueError(f"replica train sets must share one shape, got {shapes}")
-        if len({t.label_num for t in self.trainers}) != 1:
-            raise ValueError("replica datasets must share label_num")
+        with mesh_lib.use_mesh(None):  # a bank's epoch has no collective
+            for t, ds in zip(self.trainers, datasets):
+                t._prepare(ds)
+            shapes = {tuple(t._data["samples"].shape) for t in self.trainers}
+            if len(shapes) != 1:
+                raise ValueError(f"replica train sets must share one shape, got {shapes}")
+            if len({t.label_num for t in self.trainers}) != 1:
+                raise ValueError("replica datasets must share label_num")
 
-        bank = self._load()
-        epochs = bank.gan_cfg.epochs
-        bank._fit_prepared(epochs, eager=eager)
-        self._store()
+            bank = self._load()
+            epochs = bank.gan_cfg.epochs
+            bank._fit_prepared(epochs, eager=eager)
+            self._store()
         for key, rows in bank.loss_history.items():
-            for k, t in enumerate(self.trainers):
+            for k, t in enumerate(self._held):
                 t.loss_history[key].extend(row[k] for row in rows)
             rows.clear()
+        if self.mesh is not None:
+            self._gather(epochs)
         if bank.device.type == "cuda":
             torch.cuda.synchronize(bank.device)
         self.fit_seconds = time.time() - t0
         steps = epochs * sum(t._steps_per_epoch() for t in self.trainers)
         self.steps_per_sec = steps / max(self.fit_seconds, 1e-9)
         return self.trainers
+
+    def _gather(self, epochs: int) -> None:
+        """Give every rank every replica: each data rank's replicas'
+        state, optimizer state, generator state and last `epochs` of loss
+        history, all-gathered over the mesh's 'data' axis."""
+        def items(t):
+            history = torch.tensor([t.loss_history[k][-epochs:] for k in t.loss_keys],
+                                   dtype=torch.float32).reshape(len(t.loss_keys), epochs)
+            return [*t._static_tensors()[:-1], history, t.generator.get_state()]
+
+        gathered = mesh_lib.all_gather_items([items(t) for t in self._held], self.mesh)
+        with torch.no_grad():
+            for t, got in zip(self.trainers, gathered):
+                if t in self._held:
+                    continue
+                *tensors, history, rng_state = got
+                for dst, src in zip(t._static_tensors()[:-1], tensors):
+                    dst.copy_(src)
+                t.generator.set_state(rng_state.cpu().clone())
+                for k, row in zip(t.loss_keys, history.tolist()):
+                    t.loss_history[k].extend(row)
+                t._clear_gen_caches()
 
     # -------------------------------------------------------- stack/unstack
     def _load(self):
@@ -239,15 +284,15 @@ class SeedBank:
         data changed identity or shape, else refilled in place, so that
         its captured epoch stays valid."""
         key = [(id(t.state), tuple(t._data["samples"].shape),
-                tuple(t._data["index"].table.shape)) for t in self.trainers]
+                tuple(t._data["index"].table.shape)) for t in self._held]
         if self._bank is None or self._bank[0] != key:
             self._bank = (key, self._build_bank())
         bank = self._bank[1]
         for name, net in bank.state.items():
-            banked.load(net, [t.state[name] for t in self.trainers])
+            banked.load(net, [t.state[name] for t in self._held])
         with torch.no_grad():
             for name, opt in bank.optimizers.items():
-                replicas = [t.optimizers[name].tensors() for t in self.trainers]
+                replicas = [t.optimizers[name].tensors() for t in self._held]
                 for dst, srcs in zip(opt.tensors(), zip(*replicas)):
                     dst.copy_(torch.stack(srcs))
         data = self._bank_data()
@@ -265,19 +310,19 @@ class SeedBank:
         """Hand each trainer its replica's state and optimizer state."""
         bank = self._bank[1]
         for name, net in bank.state.items():
-            banked.store(net, [t.state[name] for t in self.trainers])
+            banked.store(net, [t.state[name] for t in self._held])
         with torch.no_grad():
             for name, opt in bank.optimizers.items():
-                for k, t in enumerate(self.trainers):
+                for k, t in enumerate(self._held):
                     for dst, src in zip(t.optimizers[name].tensors(), opt.tensors()):
                         dst.copy_(src[k])
-        for t in self.trainers:
+        for t in self._held:
             t._clear_gen_caches()
 
     def _build_bank(self):
         """A banked trainer of the replicas' class, with banked networks
         and optimizers of their shapes and the replicas' generators."""
-        trainers = self.trainers
+        trainers = self._held
         template = trainers[0]
         bank = object.__new__(_banked_class(type(template)))
         bank.__dict__.update(vars(template))
@@ -309,7 +354,7 @@ class SeedBank:
         (and on the host), and what `sampler.present_labels` draws from for
         each replica: its present classes in order, padded with 0, `[K, C]`,
         and their number (all C when every class or none is present)."""
-        ts = self.trainers
+        ts = self._held
         width = max(int(t._data["index"].table.shape[1]) for t in ts)
         label_num = ts[0].label_num
         orders = []
@@ -337,7 +382,7 @@ class SeedBank:
         """Give the banked trainer new data, and the class rounds, the
         replicas active in each and their masks that the data implies."""
         bank._data = data
-        rounds = [t._class_rounds() for t in self.trainers]
+        rounds = [t._class_rounds() for t in self._held]
         if all(r == [None] for r in rounds):
             union: List[Optional[int]] = [None]
         else:

@@ -85,12 +85,11 @@ class SNGAN(GenerativeTrainer):
     def _round(self, class_id, epoch, counts):
         """D, C, then G steps on the class (`sngan.py:161-183` of the JAX
         package); G's labels come from `_sample_labels`, not a batch."""
-        bs = self.gan_cfg.batch_size
         lam = self._lambda_class(epoch)
         for _ in range(counts["d"]):
-            d_loss = self._d_step(*self._sample_batch(class_id), self._prior(bs))
+            d_loss = self._d_step(*self._sample_batch(class_id), self._z_batch())
         for _ in range(counts["c"]):
-            self._c_step(*self._sample_batch(class_id), self._prior(bs))
+            self._c_step(*self._sample_batch(class_id), self._z_batch())
         for _ in range(counts["g"]):
-            out = self._g_step(self._sample_labels(class_id), self._prior(bs), lam)
+            out = self._g_step(self._sample_labels(class_id), self._z_batch(), lam)
         return {"d_loss": d_loss, **out}

@@ -49,6 +49,7 @@ from cvaegan_tpu_torch.core.state import (
     apply_train,
     grad_update,
     init_net,
+    replicated_gradients,
 )
 from cvaegan_tpu_torch.models.layers import widened
 from cvaegan_tpu_torch.models.tmg import TMGCD, TMGGenerator
@@ -151,7 +152,9 @@ class TMGGAN(GenerativeTrainer):
         `[3, z_size]` (BatchNorm over those 3 rows, its statistics
         committed); the loss is the mean over ordered pairs i != j of the
         row-wise cosine of their hidden states, row k against row k,
-        divided by feature_num; one Adam step per generator. A seed bank's
+        divided by feature_num; one Adam step per generator. The z are
+        not sharded under a mesh, as in the JAX package: every rank
+        computes the whole step (`replicated_gradients`). A seed bank's
         `z` is `[K, L, 3, z_size]`: each replica's loss is its own."""
         gens = self.state["gens"].train()
         opts = [self.optimizers[f"gens.{i}"] for i in range(len(gens))]
@@ -165,8 +168,9 @@ class TMGGAN(GenerativeTrainer):
         loss = (cos * mask).sum((-2, -1)) / max(n * (n - 1), 1) / self.feature_num
         # the heads do not reach the hidden states: their gradient is 0,
         # and Adam still steps them, as optax does
-        grads = torch.autograd.grad(_total(loss), [p for opt in opts for p in opt.params],
-                                    allow_unused=True, materialize_grads=True)
+        grads = replicated_gradients(torch.autograd.grad(
+            _total(loss), [p for opt in opts for p in opt.params],
+            allow_unused=True, materialize_grads=True))
         start = 0
         for opt in opts:
             opt.step(grads[start:start + len(opt.params)])
@@ -177,11 +181,10 @@ class TMGGAN(GenerativeTrainer):
     def _round(self, class_id: Optional[int], epoch, counts):
         """CD, then G steps on the class (`tmg_gan.py:249-258` of the JAX
         package); the losses are the last CD and G steps'."""
-        bs = self.gan_cfg.batch_size
         for _ in range(counts["c"]):
-            d_loss = self._cd_step(*self._sample_batch(class_id), self._prior(bs), class_id)
+            d_loss = self._cd_step(*self._sample_batch(class_id), self._z_batch(), class_id)
         for _ in range(counts["g"]):
-            g_loss = self._g_step(*self._sample_batch(class_id), self._prior(bs), class_id,
+            g_loss = self._g_step(*self._sample_batch(class_id), self._z_batch(), class_id,
                                   epoch)
         return {"d_loss": d_loss, "g_loss": g_loss}
 

@@ -74,7 +74,7 @@ class VAE(UnconditionalTrainer):
             self._c_step(*self._random_batch())
         for _ in range(counts["g"]):
             x_real, _ = self._random_batch()
-            out = self._g_step(x_real, self._prior(self.gan_cfg.batch_size))
+            out = self._g_step(x_real, self._eps_batch())
         return out
 
     def reconstruct_samples(self, samples) -> np.ndarray:  # type: ignore[override]

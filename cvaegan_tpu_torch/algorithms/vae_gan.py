@@ -74,13 +74,12 @@ class VAEGAN(UnconditionalTrainer):
         return {k: v.detach() for k, v in parts.items()}
 
     def _round(self, class_id, epoch, counts):
-        bs = self.gan_cfg.batch_size
         for _ in range(counts["d"]):
             x_real, _ = self._random_batch()
-            self._d_step(x_real, None, self._prior(bs))
+            self._d_step(x_real, None, self._z_batch())
         for _ in range(counts["g"]):
             x_real, _ = self._random_batch()
-            out = self._g_step(x_real, self._prior(bs), self._prior(bs))
+            out = self._g_step(x_real, self._z_batch(), self._eps_batch())
         return out
 
     def generate_qualified_samples(self, *args, **kwargs):

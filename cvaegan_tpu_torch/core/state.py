@@ -17,6 +17,8 @@ from typing import Callable, List, Optional, Sequence
 import torch
 from torch import nn
 
+from cvaegan_tpu_torch.parallel import mesh as mesh_lib
+
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. CUDA is never dropped quietly:
@@ -133,12 +135,50 @@ def _total(loss: torch.Tensor) -> torch.Tensor:
     return loss if loss.dim() == 0 else loss.sum()
 
 
+def _aux_tensors(aux) -> List[torch.Tensor]:
+    if aux is None:
+        return []
+    if isinstance(aux, dict):
+        return list(aux.values())
+    return [aux]
+
+
+def _with_aux(aux, values: List[torch.Tensor]):
+    if aux is None:
+        return None
+    if isinstance(aux, dict):
+        return dict(zip(aux, values))
+    return values[0]
+
+
+def _gradients(loss: torch.Tensor, aux, params: List[torch.Tensor]):
+    """Gradients of the loss over `params`, and (loss, aux). Inside a
+    mesh's `data_parallel` (`parallel/mesh.py`) each rank's loss is the
+    mean over its own rows: it is weighed by the rank's share of the batch
+    before the backward, and the gradients and the weighed loss and aux
+    values are summed over the data axis in one flat all-reduce, so every
+    rank steps with the gradient of the global-batch loss and returns its
+    values. (The all-reduced loss is never differentiated: the SUM backward
+    of the BatchNorm moments' all-reduce already sums over ranks.)"""
+    layout = mesh_lib.batch_layout()
+    if layout is None:
+        return torch.autograd.grad(_total(loss), params), loss, aux
+    w = layout.weight
+    grads = torch.autograd.grad(_total(loss) * w, params)
+    values = [loss, *_aux_tensors(aux)]
+    out = mesh_lib.reduce_flat([*grads, *(v.detach() * w for v in values)], layout.group)
+    grads, values = out[:len(grads)], out[len(grads):]
+    return grads, values[0], _with_aux(aux, values[1:])
+
+
 def grad_update(opt: Adam, loss_fn: Callable[[], tuple]):
-    """One optimizer step on one network: `loss_fn() -> (loss, aux)`;
-    gradients are taken over `opt.params` only (no `.grad` fields are
-    written). Returns (loss, aux)."""
+    """One optimizer step on one network: `loss_fn() -> (loss, aux)`, aux
+    None, a tensor or a dict of tensors; gradients are taken over
+    `opt.params` only (no `.grad` fields are written). Returns (loss,
+    aux)."""
     loss, aux = loss_fn()
-    opt.step(torch.autograd.grad(_total(loss), opt.params))
+    grads, loss, aux = _gradients(loss, aux, opt.params)
+    opt.step(grads)
     return loss, aux
 
 
@@ -147,10 +187,22 @@ def grad_update_pair(opt_a: Adam, opt_b: Adam, loss_fn: Callable[[], tuple]):
     generator update, reference `src/cvae_gan.py:159-216`): one backward
     over both parameter lists, two optimizers."""
     loss, aux = loss_fn()
-    grads = torch.autograd.grad(_total(loss), [*opt_a.params, *opt_b.params])
+    grads, loss, aux = _gradients(loss, aux, [*opt_a.params, *opt_b.params])
     opt_a.step(grads[:len(opt_a.params)])
     opt_b.step(grads[len(opt_a.params):])
     return loss, aux
+
+
+def replicated_gradients(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Gradients of a loss every rank computes alike on the same
+    (unsharded) inputs, as TMG-GAN's diversity step: inside a mesh's
+    `data_parallel`, each rank's share 1/n, summed over the data axis in
+    one flat all-reduce; `grads` as they are otherwise."""
+    layout = mesh_lib.batch_layout()
+    if layout is None:
+        return list(grads)
+    n = layout.mesh.shape["data"]
+    return mesh_lib.reduce_flat([g / n for g in grads], layout.group)
 
 
 def capture_graphs(bodies: Sequence[Callable[[], None]], warm_up: Callable[[], None],

@@ -14,6 +14,11 @@ is only which classes are present (`present`), which fixes the epoch's
 class rounds and the bound of a present-label draw; a captured epoch is
 kept per present-class pattern.
 
+Under a device mesh (`parallel/mesh.py`) every rank draws the global
+batch and keeps its rows: `shard_leading` at the JAX package's sites (the
+row indices and the balanced labels), `local_rows` for the balanced
+batch's row draw, which JAX leaves to GSPMD.
+
 Divergence note (as in the JAX package): rows are drawn with replacement
 in all cases, where the reference samples without replacement when a
 class has more rows than the batch.
@@ -26,6 +31,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from cvaegan_tpu_torch.parallel.mesh import local_rows, shard_leading
 
 INT32_MAX = 2**31 - 1
 
@@ -85,7 +92,7 @@ def sample_class_batch(generator: torch.Generator, index: ClassIndex,
     count = torch.clamp_min(index.counts[class_id], 1)
     r = torch.randint(0, INT32_MAX, (batch_size,), generator=generator,
                       device=samples.device)
-    return samples[index.table[class_id][r % count]]
+    return samples[index.table[class_id][shard_leading(r) % count]]
 
 
 def present_labels(generator: torch.Generator, shape: Tuple[int, ...],
@@ -110,17 +117,17 @@ def sample_balanced_batch(generator: torch.Generator, index: ClassIndex,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Class-balanced mixed batch: labels uniform over the present classes,
     rows uniform within each label's pool (`r % count`)."""
-    labels = present_labels(generator, (batch_size,), index)
+    labels = shard_leading(present_labels(generator, (batch_size,), index))
     counts = torch.clamp_min(index.counts[labels], 1)
     r = torch.randint(0, INT32_MAX, (batch_size,), generator=generator,
                       device=samples.device)
-    return samples[index.table[labels, r % counts]], labels
+    return samples[index.table[labels, local_rows(r) % counts]], labels
 
 
 def sample_random_batch(generator: torch.Generator, samples: torch.Tensor,
                         labels: torch.Tensor, batch_size: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Uniform batch over the whole train set (reference `src/gan.py:149-185`)."""
-    r = torch.randint(0, samples.shape[0], (batch_size,), generator=generator,
-                      device=samples.device)
+    r = shard_leading(torch.randint(0, samples.shape[0], (batch_size,),
+                                    generator=generator, device=samples.device))
     return samples[r], labels[r]

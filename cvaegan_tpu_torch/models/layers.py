@@ -44,6 +44,7 @@ from torch import nn
 
 from cvaegan_tpu_torch.core import config as config_lib
 from cvaegan_tpu_torch.core import initializers as init
+from cvaegan_tpu_torch.parallel import mesh as mesh_lib
 
 LEAKY_SLOPE = 0.2
 #: the policy's names and their dtypes
@@ -210,12 +211,26 @@ def _moments(x: torch.Tensor, dim: int, keepdim: bool = False):
     return mean, var
 
 
+def _global_moments(x: torch.Tensor, layout: "mesh_lib.RowLayout"):
+    """`_moments` over the rows of the global batch: every data rank's sums
+    of x and x^2 and its row count, summed over the data axis in one
+    differentiable all-reduce (`parallel/mesh.py`)."""
+    n = x.new_full((1,), float(x.shape[0]))
+    sums = mesh_lib.all_reduce(torch.cat([x.sum(0), (x * x).sum(0), n]), layout.group)
+    f = x.shape[1]
+    mean = sums[:f] / sums[-1]
+    var = torch.clamp_min(sums[f:2 * f] / sums[-1] - mean * mean, 0.0)
+    return mean, var
+
+
 class BatchNorm(nn.Module):
     """BatchNorm1d with Flax's statistics: momentum 0.9 on the running
     averages (torch's 0.1), eps 1e-5, scale ~ N(1, 0.02), bias 0
     (`src/utils.py:99-101`), biased running variance. The statistics are
     taken in float32 on `widened(x)`, and the output is cast by
-    `to_compute`."""
+    `to_compute`. Inside a mesh's `data_parallel` the train-mode moments
+    are the global batch's (`_global_moments`), so the running statistics
+    are equal on every rank."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -235,7 +250,8 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = widened(x)
         if self.training:
-            mean, var = _moments(x, 0)
+            layout = mesh_lib.batch_layout()
+            mean, var = _moments(x, 0) if layout is None else _global_moments(x, layout)
             if self.update_state:
                 with torch.no_grad():
                     m = self.momentum
@@ -292,7 +308,11 @@ def forward_with(module: nn.Module, *args, generator: Optional[torch.Generator] 
 
 def _keep_mask(x: torch.Tensor, keep_prob: float,
                generator: Optional[torch.Generator]) -> torch.Tensor:
-    return torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    """The keep-mask of `x`'s rows; under a mesh, those rows of the global
+    batch's mask (`mesh.local_draw`)."""
+    return mesh_lib.local_draw(
+        lambda shape: torch.rand(shape, generator=generator, device=x.device),
+        x.shape) < keep_prob
 
 
 class Dropout(nn.Module):

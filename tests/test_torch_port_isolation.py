@@ -38,6 +38,8 @@ def test_import_loads_no_jax():
             "import cvaegan_tpu_torch.data.streaming, cvaegan_tpu_torch.data.native_csv\n"
             "import cvaegan_tpu_torch.utils.checkpoint, cvaegan_tpu_torch.utils.profiling\n"
             "import cvaegan_tpu_torch.compat, cvaegan_tpu_torch.pipelines.balance\n"
+            "import cvaegan_tpu_torch.parallel.mesh, cvaegan_tpu_torch.parallel.distributed\n"
+            "import cvaegan_tpu_torch.kernels.ring_attention\n"
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=PACKAGE.parent, timeout=120)

@@ -36,6 +36,7 @@ from cvaegan_tpu_torch.core import config as tconfig
 from cvaegan_tpu_torch.core.state import Adam, init_net
 from cvaegan_tpu_torch.data.tabular import TabularDataset
 from cvaegan_tpu_torch.models import banked, mlp
+from cvaegan_tpu_torch.parallel.mesh import Mesh
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 SEEDS = [3, 11]
@@ -348,11 +349,28 @@ def test_bank_of_each_trainer(name):
                                        rtol=1e-3, atol=1e-4, err_msg=key)
 
 
+class _Grid:
+    """A device mesh's axis sizes, all `Mesh.shape` reads: enough for the
+    checks `SeedBank` makes before it needs a process group."""
+
+    def __init__(self, *sizes):
+        self.sizes = sizes
+
+    def size(self, axis: int) -> int:
+        return self.sizes[axis]
+
+
+def data_mesh(n_data: int) -> Mesh:
+    return Mesh(_Grid(n_data, 1))
+
+
 def test_bank_input_validation(monkeypatch):
     with pytest.raises(ValueError, match="at least one seed"):
         SeedBank(CVAEGAN, seeds=[], device="cpu")
-    with pytest.raises(NotImplementedError, match="A21"):
+    with pytest.raises(TypeError, match="Mesh"):
         SeedBank(CVAEGAN, seeds=[0, 1], device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="3 seeds do not divide the mesh's 'data' axis"):
+        SeedBank(CVAEGAN, seeds=[0, 1, 2], device="cpu", mesh=data_mesh(2))
     bank = SeedBank(CVAEGAN, seeds=[0, 1], settings=_settings(), device="cpu")
     with pytest.raises(ValueError, match="datasets"):
         bank.fit([_fixture(0)] * 3)

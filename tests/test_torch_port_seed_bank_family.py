@@ -53,7 +53,7 @@ from test_torch_port_family import TOL, _normal, _t, _tree, _warm_state
 from test_torch_port_layers import _assert_state
 from test_torch_port_qg_smote import G_TOL, errors_over_tol
 from test_torch_port_qg_smote import _steps as qg_steps
-from test_torch_port_seed_bank import _draw_moments, _fixture, _settings, _tensors
+from test_torch_port_seed_bank import _draw_moments, _fixture, _settings, _tensors, data_mesh
 from test_torch_port_sngan_ctgan import GP_TOL, _assert_state_matches, power_iterated
 from test_torch_port_sngan_ctgan import _steps as sngan_ctgan_steps
 from test_torch_port_tmg_gan import DIV_TOL, GEN_COUNTS
@@ -729,5 +729,7 @@ def test_bank_runs_no_chunk_hook(monkeypatch, name, balanced):
 def test_tmg_gan_bank_refuses_balanced_mode():
     with pytest.raises(ValueError, match="balanced_mode"):
         SeedBank(cvaegan_tpu_torch.TMGGAN, seeds=[0, 1], device="cpu", balanced_mode=True)
-    with pytest.raises(NotImplementedError, match="A21"):
+    with pytest.raises(TypeError, match="Mesh"):
         SeedBank(cvaegan_tpu_torch.TMGGAN, seeds=[0, 1], device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="do not divide"):
+        SeedBank(cvaegan_tpu_torch.TMGGAN, seeds=[0, 1, 2], device="cpu", mesh=data_mesh(2))

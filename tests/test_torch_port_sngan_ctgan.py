@@ -672,11 +672,15 @@ def test_pipeline_with_warm_start(tmp_path, model):
 @pytest.mark.parametrize("name", ["RAIN_GAN", "SNGAN", "CTGAN", "QG_SMOTE", "TMGGAN"])
 def test_seed_bank_refuses_at_construction(name):
     """A bank of any trainer builds (its banked forms: `models/banked.py`);
-    what it still refuses at construction is sharding the replica axis
-    over devices (`mesh=`, ROADMAP A21)."""
+    what it refuses at construction is a `mesh=` that is not a
+    `parallel.mesh.Mesh`, and seeds its 'data' axis does not divide."""
+    from test_torch_port_seed_bank import data_mesh
+
     cls = getattr(cvaegan_tpu_torch, name)
     bank = SeedBank(cls, seeds=[0, 1], device="cpu")
     assert [type(t) for t in bank.trainers] == [cls, cls]
     assert [t.seed for t in bank.trainers] == [0, 1]
-    with pytest.raises(NotImplementedError, match="A21"):
+    with pytest.raises(TypeError, match="Mesh"):
         SeedBank(cls, seeds=[0, 1], device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="do not divide"):
+        SeedBank(cls, seeds=[0, 1, 2], device="cpu", mesh=data_mesh(2))
