@@ -286,6 +286,11 @@ BANK_FAMILY_TIMING_EPOCHS = 2
 # held at the captured-against-eager tolerance.
 MESH_RTOL, MESH_ATOL = TRAIN_RTOL, TRAIN_ATOL
 MESH_BANK_K, MESH_BANK_EPOCHS = 4, 2
+# The mesh phase's `model` leg places every leaf `shard_net_state` would
+# shard on a 'model' axis of this size (on the card's 1-rank axis each
+# slice is the whole leaf) and holds the placed epochs to the plain ones
+# bitwise: every such collective is then a copy or the identity.
+MODEL_LEG_N = 2
 JAX_STRICT_RECON_LAST50 = (0.16611650466918945, 0.1633944422006607,
                            0.16289449065923692, 0.16205778270959853,
                            0.1620414972305298)
@@ -2098,8 +2103,9 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_phase(torch, tp, tconfig, ds, ba, part, card):
-    """The `mesh` phase (13). Returns its report."""
+def mesh_phase(torch, tp, tconfig, ds, ba, fused_mlp, part, card):
+    """The `mesh` phase (13). Returns its report and B1's launches on the
+    placed fast path (the `model` leg)."""
     import torch.distributed as dist
 
     from cvaegan_tpu_torch.kernels import ring_attention as ra
@@ -2146,8 +2152,8 @@ def mesh_phase(torch, tp, tconfig, ds, ba, part, card):
                 graph.replay()
             replays.append(replay)
         (plain_ms, mesh_ms), rounds = cuda_ms(torch, replays, iters=5, reps=4, warmup=1)
-        nccl_per_replay, ops_per_replay = nccl_kernels(torch, replays[1])
-        _, plain_ops = nccl_kernels(torch, replays[0])
+        nccl_per_replay, ops_per_replay = nccl_kernels(torch, replays[1], calls=1)
+        _, plain_ops = nccl_kernels(torch, replays[0], calls=1)
         with mesh_lib.use_mesh(mesh), mesh_lib.data_parallel(meshed.gan_cfg.batch_size):
             mesh_lib.COLLECTIVES = 0
             meshed._epoch()  # eager: the collectives one epoch issues
@@ -2164,6 +2170,9 @@ def mesh_phase(torch, tp, tconfig, ds, ba, part, card):
             "steps_per_epoch": meshed._steps_per_epoch(),
             "nccl_kernels_per_replay": nccl_per_replay,
             "device_ops_per_replay": {"plain": plain_ops, "mesh": ops_per_replay}}
+
+        report["model"], fast_launches = model_leg(torch, tp, tconfig, ds, fused_mlp, mesh,
+                                                   plain, meshed, plain_ops)
 
         # SeedBank(mesh=): one data rank trains all K and gathers them
         def bank(use):
@@ -2225,7 +2234,101 @@ def mesh_phase(torch, tp, tconfig, ds, ba, part, card):
         dist.destroy_process_group()
     report["destroyed"] = not dist.is_initialized()
     check(report["destroyed"], "the process group outlived the phase")
-    return report
+    return report, fast_launches
+
+
+def model_leg(torch, tp, tconfig, ds, fused_mlp, mesh, plain, meshed, plain_ops):
+    """The `model` leg of the mesh phase: on the 1-rank group, every leaf
+    `shard_net_state` shards at n_model = MODEL_LEG_N is placed onto its
+    'model' spec (each slice the whole leaf), so every tensor-parallel
+    path runs: the gathers, the backward all-reduces, the spectral partial
+    products and the fast path's gather before B1. The captured strict
+    CVAE-GAN and RAIN-GAN epochs on the placed states, their collectives
+    in the graph, are held to fresh plain epochs bitwise, and so is the
+    placed fast path's output. The placed CVAE-GAN's replay is timed in
+    the same rounds as `plain` and `meshed`, the phase's plain and
+    data-only meshed trainers (`plain_ops`: the plain replay's device
+    ops), and profiled once; RAIN-GAN's is timed beside its plain one.
+    A capture records one epoch's collectives, which are counted there.
+    Returns (report, B1 launches of the placed fast path)."""
+    from cvaegan_tpu_torch.parallel import mesh as mesh_lib
+
+    def fitted(cls, placed):
+        m = cls(seed=0, device="cuda", settings=train_settings(tconfig, 1))
+        m.verbose = False
+        counts = {}
+        warm_up = m._warm_up
+
+        def counted_warm_up():
+            warm_up()
+            counts["warm_up"] = mesh_lib.COLLECTIVES
+        m._warm_up = counted_warm_up
+        with mesh_lib.use_mesh(mesh if placed else None):
+            m._prepare(ds)
+            draw_moments(torch, m, 0)
+            if placed:
+                mesh_lib.place(m.state, mesh_lib.shard_net_state(
+                    m.state, mesh, n_model=MODEL_LEG_N), m.optimizers)
+            mesh_lib.COLLECTIVES = 0
+            m._fit_prepared(1)
+        torch.cuda.synchronize()
+        del m._warm_up
+        return m, mesh_lib.COLLECTIVES, mesh_lib.COLLECTIVES - counts["warm_up"]
+
+    def replay_of(m):
+        graph = m._graph[1]
+
+        def replay():
+            m._epoch_t.fill_(1)
+            graph.replay()
+        return replay
+
+    report, fast_launches = {"n_model_specs": MODEL_LEG_N}, 0
+    for name, cls in (("cvae_gan", tp.CVAEGAN), ("rain_gan", tp.RAIN_GAN)):
+        t0 = time.perf_counter()
+        base = fitted(cls, False)[0]
+        m, fit_collectives, per_epoch = fitted(cls, True)
+        sliced = sum(mesh_lib.shard_of(t) is not None for t in m._static_tensors())
+        check(sliced > 0, f"{name}: no leaf was placed over 'model'")
+        check(m._graph is not None and m._graph[0][3] == m._placement_key(),
+              f"{name}: the placed fit did not replay a capture keyed by its placement")
+        _, ratio, bitwise = compare_fits(torch, base, m, MESH_RTOL, MESH_ATOL)
+        check(bitwise, f"{name}: the placed epoch is not the plain one bitwise "
+              f"({ratio} of the tolerance)")
+        entry = {"sliced_tensors": sliced, "bitwise": bitwise,
+                 "collectives_per_epoch": per_epoch,
+                 "collectives_in_fit_with_warm_up_and_capture": fit_collectives,
+                 "steps_per_epoch": m._steps_per_epoch()}
+        if name == "cvae_gan":
+            # the fast path, from the two equal states and generators: the
+            # placed generator's leaves gathered, then B1
+            with torch.no_grad():
+                want = base.generate_samples_fast(0, SERVE_ROWS)
+                before = fused_mlp.LAUNCHES
+                got = m.generate_samples_fast(0, SERVE_ROWS)
+                torch.cuda.synchronize()
+                fast_launches = fused_mlp.LAUNCHES - before
+            check(fast_launches == 1,
+                  f"the placed fast path launched B1 {fast_launches} times")
+            check(np.array_equal(got, want), "the placed fast path is not the plain one "
+                  "bitwise")
+            check("fast_fold" in m._gen_cache, "the placed fast path kept no fold")
+            report["fast_path"] = {"rows": SERVE_ROWS, "b1_launches": fast_launches,
+                                   "bitwise": True}
+            entry["nccl_kernels_per_replay"], entry["device_ops_per_replay"] = nccl_kernels(
+                torch, replay_of(m), calls=1)
+            entry["device_ops_per_replay_plain"] = plain_ops
+            runs = {"plain": replay_of(plain), "data_mesh": replay_of(meshed),
+                    "model_placed": replay_of(m)}
+            times, rounds = cuda_ms(torch, list(runs.values()), iters=5, reps=4, warmup=1)
+        else:
+            runs = {"plain": replay_of(base), "model_placed": replay_of(m)}
+            times, rounds = cuda_ms(torch, list(runs.values()), iters=3, reps=4, warmup=2)
+        entry["replay_device_ms"] = dict(zip(runs, times))
+        entry["replay_rounds"] = dict(zip(runs, rounds))
+        entry["seconds"] = time.perf_counter() - t0
+        report[name] = entry
+    return report, fast_launches
 
 
 def main() -> int:
@@ -2705,7 +2808,7 @@ def main() -> int:
     # 13. the device mesh --------------------------------------------------
     # (its B2/B3 launches compare ring attention with them: none is counted)
     t0 = time.perf_counter()
-    mesh = mesh_phase(torch, tp, tconfig, ds, ba, part, card)
+    mesh, mesh_fast = mesh_phase(torch, tp, tconfig, ds, ba, fused_mlp, part, card)
     emit({"phase": "mesh", "card": card, **mesh, "wall_seconds": time.perf_counter() - t0})
     training_launches = tuple(sum(n) for n in zip(training_launches, family_train,
                                                   bank_train, bank_family_train,
@@ -2764,8 +2867,10 @@ def main() -> int:
         {"name": "fused_mlp4", "route": "cuda",
          "source": "cvaegan_tpu_torch/csrc/fused_mlp4.cu",
          "replaces": "cvaegan_tpu/kernels/fused_mlp.py:44",
-         "launches": launches["total"] + family_fast + bank_fast + bank_family_fast,
+         "launches": (launches["total"] + family_fast + bank_fast + bank_family_fast
+                      + mesh_fast),
          "launches_by_path": {"cvae_gan": launches["total"],
+                              "mesh_model_placed_fast_path": mesh_fast,
                               "family_fast_paths": family_fast,
                               "seed_bank_replica": bank_fast,
                               "seed_bank_family_qg_smote_replica": bank_family_fast,

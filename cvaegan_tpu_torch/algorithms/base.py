@@ -171,8 +171,11 @@ class GenerativeTrainer:
         self._data: Optional[Dict] = None
         self.loss_history: Dict[str, list] = {k: [] for k in self.loss_keys}
         #: generation caches since the state last changed, one namespace
-        #: per policy (`_gen_cache`): the qualified candidate capacities
+        #: per policy (`_gen_cache`): the qualified candidate capacities,
+        #: and the fast path's fold of a placed generator
         self._gen_caches: Dict[str, dict] = {}
+        #: the `_placement_key` the captures and caches were made under
+        self._placement: Optional[tuple] = None
         #: the epoch number and the epoch's losses, on the device: a
         #: captured epoch reads the one and writes the other
         self._epoch_t = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -269,8 +272,25 @@ class GenerativeTrainer:
         """The generation cache of the policy in force: flipping the policy
         starts another namespace and keeps the old one, as the JAX package
         keys its generation programs (`cvaegan_tpu/algorithms/base.py:
-        115-130`)."""
+        115-130`). A `parallel.mesh.place` of the state since the caches
+        were filled clears them all (`_check_placement`)."""
+        self._check_placement()
         return self._gen_caches.setdefault(self._policy_key(), {})
+
+    def _placement_key(self) -> tuple:
+        """`parallel.mesh.placement_key` of every state and optimizer
+        tensor: `place` changes it (storage, shapes, `ModelShard`s)."""
+        return mesh_lib.placement_key(self._static_tensors()[:-1])
+
+    def _check_placement(self) -> None:
+        """Forget every capture and generation cache if the state was
+        placed (`parallel.mesh.place`) since they were made: a kept graph
+        would replay over freed tensors, a cached fold hold old leaves."""
+        key = self._placement_key()
+        if key != self._placement:
+            self._drop_graphs()
+            self._gen_caches.clear()
+            self._placement = key
 
     def _clear_gen_caches(self) -> None:
         """Forget every policy's generation cache: the state changed (a fit
@@ -421,8 +441,9 @@ class GenerativeTrainer:
 
     def _sync_ranks(self, mesh) -> None:
         """Give every rank of `mesh` the first rank's networks, optimizer
-        state and generator state: then each rank holds one model and
-        draws one global batch."""
+        state and generator state: then each rank holds one model (of a
+        state `place` sliced over 'model', the slices of its model
+        coordinate: `mesh.broadcast`) and draws one global batch."""
         mesh_lib.broadcast(self._static_tensors()[:-1], mesh)
         mesh_lib.broadcast_generator(self.generator, mesh)
         self._clear_gen_caches()
@@ -660,17 +681,20 @@ class GenerativeTrainer:
     def _capture_key(self):
         cfg = self.gan_cfg
         return (self._policy_key(), mesh_lib.current_mesh(), id(self.state),
-                id(self._data["samples"]), self.balanced_mode,
+                self._placement_key(), id(self._data["samples"]), self.balanced_mode,
                 tuple(self._class_rounds()), self._pattern(),
                 cfg.batch_size, cfg.d_loop_num, cfg.c_loop_num, cfg.g_loop_num,
                 tuple(sorted(self.hparams.items())), self.ema_decay)
 
     def _captured_epoch(self):
         """The replay of this trainer's captured epoch, capturing it first
-        unless a capture for the same policy, mesh (or none), state, data
-        tensors, mode, present classes and settings is kept (at most
+        unless a capture for the same policy, mesh (or none), state and
+        placement, data tensors, mode, present classes and settings is
+        kept (at most
         `MAX_GRAPHS`, the oldest dropped first). The warm-up's effects on
-        the state and on every generator are undone before the capture."""
+        the state and on every generator are undone before the capture.
+        Captures made before a `place` of the state are dropped."""
+        self._check_placement()
         key = self._capture_key()
         if key in self._graphs:
             self._graph = (key, self._graphs[key])
@@ -701,7 +725,11 @@ class GenerativeTrainer:
         (`kernels/fused_mlp.py`): eval-mode BatchNorm folded into the
         matmuls, all four layers in one launch. The final activation is
         the generator's own. The kernel and its inputs are float32 under
-        either policy. Only available for the standard conditional MLP
+        either policy. Of a generator `parallel.mesh.place` sliced over
+        'model', the leaves are gathered whole first (every model rank
+        calls this), as the Pallas call in JAX receives GSPMD-gathered
+        operands, and the fold is kept until the state or its placement
+        changes. Only available for the standard conditional MLP
         generator; raises NotImplementedError otherwise."""
         self._require_state()
         if not self.conditional_sampling:
@@ -713,8 +741,14 @@ class GenerativeTrainer:
         z = self._prior(num)
         final = getattr(gen, "out_activation", None) or "none"
         try:
+            params = None
+            if any(mesh_lib.shard_of(t) is not None for t in mesh_lib.state_tensors(gen)):
+                params = self._gen_cache.get("fast_fold")
+                if params is None:
+                    params = fused.generator_fast_params(gen, whole=mesh_lib.gather_leaf)
+                    self._gen_cache["fast_fold"] = params
             out = fused.fast_generator_forward(
-                gen, z, one_hot(labels, self.label_num), final=final)
+                gen, z, one_hot(labels, self.label_num), final=final, params=params)
         except NotImplementedError as e:
             raise NotImplementedError(
                 f"{self.name}: {e}; use generate_samples()") from e

@@ -83,7 +83,12 @@ class Adam:
     independent replicas (a seed bank's stacked networks) and `t` is one
     count per replica, shape `[K]`: the update is elementwise, so it is K
     separate Adams, and a replica whose state is put back after a masked
-    step keeps its own count."""
+    step keeps its own count.
+
+    After `parallel.mesh.place` over a mesh's 'model' axis, a sliced
+    parameter's moments are the same slice of the whole moments (`place`
+    slices them with it) and `t` stays whole: the update is elementwise,
+    so each rank steps its slices as the whole Adam would."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -159,7 +164,12 @@ def _gradients(loss: torch.Tensor, aux, params: List[torch.Tensor]):
     values are summed over the data axis in one flat all-reduce, so every
     rank steps with the gradient of the global-batch loss and returns its
     values. (The all-reduced loss is never differentiated: the SUM backward
-    of the BatchNorm moments' all-reduce already sums over ranks.)"""
+    of the BatchNorm moments' all-reduce already sums over ranks.) The sum
+    runs over the 'data' group only: under a 2-D mesh it holds the ranks
+    of this rank's model coordinate, so a leaf's slice sums with the same
+    slice of its peers, and a replicated leaf's gradient, computed alike
+    on every model rank, is not summed over 'model' (that would scale it
+    by the axis' size)."""
     layout = mesh_lib.batch_layout()
     if layout is None:
         return torch.autograd.grad(_total(loss), params), loss, aux

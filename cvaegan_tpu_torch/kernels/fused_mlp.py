@@ -219,10 +219,13 @@ def fold_dense_bn(kernel, bias, bn_scale, bn_bias, bn_mean, bn_var,
 
 
 @torch.no_grad()
-def generator_fast_params(gen) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+def generator_fast_params(gen, whole=lambda t: t
+                          ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Folded contiguous `[in, out]` (weights, biases) of a standard
-    `mlp.Generator` (MLPTrunk with BatchNorm + output Dense). Raises
-    NotImplementedError for any other generator."""
+    `mlp.Generator` (MLPTrunk with BatchNorm + output Dense), each leaf
+    read through `whole` (`parallel.mesh.gather_leaf` for a generator
+    placed over 'model'). Raises NotImplementedError for any other
+    generator."""
     trunk, head = getattr(gen, "trunk", None), getattr(gen, "head", None)
     if not (isinstance(trunk, MLPTrunk) and len(trunk.dense) == 3
             and isinstance(head, Dense)):
@@ -230,20 +233,21 @@ def generator_fast_params(gen) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
             f"{type(gen).__name__} is not the standard MLP generator stack")
     weights, biases = [], []
     for dense, bn in zip(trunk.dense, trunk.bn):
-        w, b = fold_dense_bn(dense.weight.t(), dense.bias, bn.weight, bn.bias,
-                             bn.running_mean, bn.running_var, bn.eps)
+        w, b = fold_dense_bn(whole(dense.weight).t(), *(whole(t) for t in (
+            dense.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)), bn.eps)
         weights.append(w.contiguous())
         biases.append(b.contiguous())
-    weights.append(head.weight.detach().t().contiguous())
-    biases.append(head.bias.detach().contiguous())
+    weights.append(whole(head.weight).detach().t().contiguous())
+    biases.append(whole(head.bias).detach().contiguous())
     return weights, biases
 
 
 def fast_generator_forward(gen, z: torch.Tensor, onehot_labels: torch.Tensor,
-                           final: str = "sigmoid") -> torch.Tensor:
+                           final: str = "sigmoid", params=None) -> torch.Tensor:
     """Fused eval-mode generator forward: concat(z, onehot) -> the 4-layer
-    fused kernel. Equal to the module's eval forward up to the rounding of
-    the BatchNorm fold."""
-    weights, biases = generator_fast_params(gen)
+    fused kernel, on `params` (`generator_fast_params(gen)` by default).
+    Equal to the module's eval forward up to the rounding of the BatchNorm
+    fold."""
+    weights, biases = params or generator_fast_params(gen)
     x = torch.cat([z, onehot_labels], dim=-1)
     return fused_mlp4(x, weights, biases, final=final)

@@ -23,10 +23,12 @@ from cvaegan_tpu_torch.models.layers import (
     BatchNorm,
     Dense,
     Dropout,
+    dense_bn,
     SpectralDense,
     hidden_sizes,
     leaky_relu,
     one_hot,
+    whole_features,
 )
 
 
@@ -63,7 +65,7 @@ class ResidualBlock(nn.Module):
         self.shortcut = dense(in_features, features) if in_features != features else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.bn2(self.dense2(torch.relu(self.bn1(self.dense1(x)))))
+        h = dense_bn(self.dense2, self.bn2, torch.relu(dense_bn(self.dense1, self.bn1, x)))
         return h + (x if self.shortcut is None else self.shortcut(x))
 
 
@@ -84,7 +86,7 @@ class CTGANGenerator(nn.Module):
     def forward(self, z: torch.Tensor, labels: torch.Tensor,
                 column_mask: torch.Tensor) -> torch.Tensor:
         x = torch.cat([z, one_hot(labels, self.num_classes), column_mask], dim=-1)
-        h = torch.relu(self.bn(self.proj(x)))
+        h = torch.relu(dense_bn(self.proj, self.bn, x))
         for block in self.blocks:
             h = torch.relu(block(h))
         return torch.tanh(self.head(h))
@@ -134,8 +136,8 @@ class CTGANClassifier(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         l1, l2, l3, l4 = self.layers
-        h = self.dropout(torch.relu(self.bn[0](l1(x))), generator)
-        h = self.dropout(torch.relu(self.bn[1](l2(h))), generator)
+        h = self.dropout(torch.relu(dense_bn(l1, self.bn[0], x)), generator)
+        h = self.dropout(torch.relu(dense_bn(l2, self.bn[1], h)), generator)
         return l4(torch.relu(l3(h)))
 
 
@@ -149,4 +151,5 @@ class ModeSpecificNormalization(nn.Module):
         self.beta = nn.Parameter(torch.zeros(num_modes, num_features))
 
     def forward(self, x: torch.Tensor, modes: torch.Tensor) -> torch.Tensor:
-        return self.gamma[modes] * x + self.beta[modes]
+        gamma, beta = whole_features(self.gamma, self.beta)  # sliced by feature if placed
+        return gamma[modes] * x + beta[modes]

@@ -30,6 +30,42 @@ Layouts and numerics follow the JAX package, not torch's built-ins:
     Under `state_frozen(net)` a train-mode forward keeps batch statistics,
     dropout and the current `u`/`v` but updates nothing: the counterpart
     of a Flax apply whose new mutables are thrown away.
+  * Tensor parallelism (`parallel/mesh.py`): a layer whose leaves `place`
+    sliced over the mesh's 'model' axis (`mesh.shard_of`) computes its
+    slice of the features. Every layer takes and returns whole
+    activations, so the layers compose as they do unplaced (attention's
+    head split runs on whole activations, unchanged), and on a 'model'
+    axis of size 1 every placed forward is the plain one bitwise. The one
+    exception is the choice made for BatchNorm: between a sliced `Dense`
+    or `SpectralDense` and the `BatchNorm` after it, sliced alike, the
+    activation stays sliced (`dense_bn`, at every such pair of the
+    networks). Collectives over the model group, per forward and the
+    backward it adds:
+      - `Dense`, weight sliced by output rows: its input enters the model
+        region (`enter_model`), the rank computes its output columns and
+        `gather_model` makes them whole: 1 all-gather; backward 1 SUM
+        all-reduce (the input's gradient). Weight replicated, bias sliced
+        (TMG-GAN's generators): the bias is gathered, 1 all-gather.
+      - `SpectralDense`, weight sliced: in train mode u W is summed over
+        the ranks' rows (1 all-reduce) and W v gathered whole (1
+        all-gather) and normalised whole; sigma takes its value from that
+        W v and its gradient through each rank's own partial u_r W_r v
+        (backward 1 all-reduce as it enters the sliced W / sigma); in
+        eval mode or `state_frozen` a sliced v is gathered (1 all-gather)
+        and sigma summed from the partials (1 all-reduce). Then as
+        `Dense`. All of it float32 and outside autograd for u and v. A
+        replicated weight with a sliced v (a critic's 1-wide head) only
+        gathers v outside train mode.
+      - `BatchNorm`, sliced by feature, after a layer sliced alike
+        (`dense_bn`): none of its own; the pair gathers once forward and
+        all-reduces once backward. Alone (after a replicated kernel): it
+        slices its input (`split_model`) and gathers its output, 1
+        all-gather forward and 1 backward. Its moments are per feature:
+        no 'model' collective (inside `data_parallel` still summed over
+        'data'); it updates its slice of the running statistics.
+      - `LayerNorm`, and CTGAN's mode affine: statistics over the whole
+        row as unplaced; sliced scale and bias are gathered, 1 all-gather
+        of both (`whole_features`).
 """
 
 from __future__ import annotations
@@ -161,7 +197,26 @@ class Dense(nn.Module):
             init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight, self.bias)
+        rows = mesh_lib.shard_of(self.weight)
+        if rows is None:
+            return dense(x, self.weight, mesh_lib.whole(self.bias))
+        return mesh_lib.gather_model(self.columns(x, rows), rows)
+
+    def columns(self, x: torch.Tensor, rows: "mesh_lib.ModelShard") -> torch.Tensor:
+        """This rank's output columns of a weight sliced by output rows."""
+        return _columns(x, self.weight, self.bias, rows)
+
+
+def _columns(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+             rows: "mesh_lib.ModelShard") -> torch.Tensor:
+    """This rank's output columns of x W^T + b for a weight sliced by
+    output rows (`rows`); `x` is whole and enters the model region."""
+    if rows.dim != 0:
+        raise ValueError(f"a Dense weight sliced along axis {rows.dim}: the port slices "
+                         "a kernel [in, out] over its output features only")
+    if bias is not None and mesh_lib.shard_of(bias) is None:
+        bias = mesh_lib.split_model(bias, rows)
+    return dense(mesh_lib.enter_model(x, rows), weight, bias)
 
 
 class SpectralDense(nn.Module):
@@ -194,13 +249,42 @@ class SpectralDense(nn.Module):
         self.v.copy_(_l2_normalize(self.v.normal_(generator=generator)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rows = mesh_lib.shard_of(self.weight)
+        if rows is None:
+            return dense(x, self._scaled(rows), mesh_lib.whole(self.bias))
+        return mesh_lib.gather_model(self.columns(x, rows), rows)
+
+    def columns(self, x: torch.Tensor, rows: "mesh_lib.ModelShard") -> torch.Tensor:
+        """This rank's output columns of a weight sliced by output rows."""
+        return _columns(x, self._scaled(rows), self.bias, rows)
+
+    def _scaled(self, rows: Optional["mesh_lib.ModelShard"]) -> torch.Tensor:
+        """W / sigma (this rank's rows of it), after one power iteration
+        in train mode unless frozen. Sliced rows: sigma's value is taken
+        on the whole gathered W v where the iteration gives it (else summed
+        from the ranks' partial dot products), and its gradient reaches
+        each rank's rows through its own partial; it enters the sliced
+        W / sigma through `enter_model`."""
+        if mesh_lib.shard_of(self.u) != rows:
+            raise ValueError("a SpectralDense's u is placed unlike its weight's rows")
+        wv = None
         if self.training and self.update_state:
             with torch.no_grad():
-                v = _l2_normalize(self.u @ self.weight)
-                self.u.copy_(_l2_normalize(self.weight @ v))
-                self.v.copy_(v)
-        sigma = torch.dot(self.u, self.weight @ self.v)
-        return dense(x, self.weight / sigma, self.bias)
+                v = _l2_normalize(mesh_lib.model_sum(self.u @ self.weight, rows))
+                wv = mesh_lib.gather_model(self.weight @ v, rows)
+                u = _l2_normalize(wv)
+                self.u.copy_(mesh_lib.local_part(u, rows))
+                self.v.copy_(mesh_lib.local_part(v, mesh_lib.shard_of(self.v)))
+        else:
+            v = mesh_lib.gather_leaf(self.v)
+        sigma = torch.dot(self.u, self.weight @ v)
+        if rows is None:
+            return self.weight / sigma
+        if wv is None:
+            sigma = mesh_lib.model_sum(sigma, rows)
+        else:  # the whole value, without a collective; the partial's gradient
+            sigma = torch.dot(u, wv) + (sigma - sigma.detach())
+        return self.weight / mesh_lib.enter_model(sigma, rows)
 
 
 def _moments(x: torch.Tensor, dim: int, keepdim: bool = False):
@@ -248,6 +332,10 @@ class BatchNorm(nn.Module):
         init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shard = _feature_shard(self.weight, self.bias, self.running_mean, self.running_var)
+        return mesh_lib.gather_model(self._normalize(mesh_lib.split_model(x, shard)), shard)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         x = widened(x)
         if self.training:
             layout = mesh_lib.batch_layout()
@@ -278,7 +366,31 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = widened(x)
         mean, var = _moments(x, -1, keepdim=True)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        scale, bias = whole_features(self.weight, self.bias)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
+
+
+def _feature_shard(*leaves: torch.Tensor) -> Optional["mesh_lib.ModelShard"]:
+    """The one placement of a layer's per-feature leaves (None unplaced);
+    leaves placed unlike each other raise."""
+    shards = {mesh_lib.shard_of(t) for t in leaves}
+    if len(shards) > 1:
+        raise ValueError("a layer's per-feature leaves are placed unlike each other: "
+                         "place them with one spec")
+    return shards.pop()
+
+
+def whole_features(*leaves: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Leaves of one shape sliced alike along their last (feature) axis,
+    whole: one all-gather of them stacked (differentiable); as they are
+    unplaced."""
+    shard = _feature_shard(*leaves)
+    if shard is None:
+        return leaves
+    if shard.dim != leaves[0].dim() - 1:
+        raise ValueError(f"per-feature leaves sliced along axis {shard.dim}, not their "
+                         "feature axis")
+    return tuple(mesh_lib.gather_model(torch.stack(leaves), shard).unbind(0))
 
 
 @contextlib.contextmanager
@@ -331,6 +443,18 @@ class Dropout(nn.Module):
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
+def dense_bn(layer: nn.Module, bn: "BatchNorm", x: torch.Tensor) -> torch.Tensor:
+    """`bn(layer(x))` for a `Dense` or `SpectralDense` and the `BatchNorm`
+    after it. Where both are sliced alike over 'model', the activation
+    stays sliced between them: the pair takes one all-gather forward and
+    one all-reduce backward, where apart it would take two of each."""
+    rows = mesh_lib.shard_of(layer.weight)
+    if rows is None or _feature_shard(bn.weight, bn.bias, bn.running_mean,
+                                      bn.running_var) != rows:
+        return bn(layer(x))
+    return mesh_lib.gather_model(bn._normalize(layer.columns(x, rows)), rows)
+
+
 class MLPTrunk(nn.Module):
     """The reference's 3x [Linear -> BatchNorm -> LeakyReLU(0.2)] stack
     (`src/models/cvae_gan_models.py:20-33`)."""
@@ -344,5 +468,5 @@ class MLPTrunk(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for dense, bn in zip(self.dense, self.bn):
-            x = leaky_relu(bn(dense(x)))
+            x = leaky_relu(dense_bn(dense, bn, x))
         return x

@@ -21,6 +21,7 @@ from cvaegan_tpu_torch.models.layers import (
     BatchNorm,
     Dense,
     SpectralDense,
+    dense_bn,
     hidden_sizes,
     leaky_relu,
     one_hot,
@@ -51,7 +52,7 @@ class SNGANGenerator(nn.Module):
         if self.num_classes > 0:
             h = torch.cat([z, one_hot(labels, self.num_classes)], dim=-1)
         for layer, bn in zip(self.layers, self.bn):
-            h = torch.relu(bn(layer(h)))
+            h = torch.relu(dense_bn(layer, bn, h))
         return torch.sigmoid(self.head(h)), h
 
 

@@ -24,9 +24,29 @@ out:
     and sums the gradients, and the loss values, over the data axis in one
     flat all-reduce (`reduce_flat`). Collectives run at every group size,
     1 included;
-  * the 'model' axis: `shard_net_state` gives the JAX package's per-leaf
-    specs, but tensor parallelism is not ported (ROADMAP A27), so `place`
-    onto a 'model'-sharded spec raises.
+  * the 'model' axis (tensor parallelism): `shard_net_state` gives the
+    JAX package's per-leaf specs, and `place` leaves on each rank the
+    contiguous block of every 'model'-sharded leaf at its 'model'
+    coordinate (and the same block of its Adam moments), marked with a
+    `ModelShard` that the layers read (`models/layers.py`). The math is
+    the single-process math: every value the layers pass on is whole on
+    every model rank, and the loss is computed alike on each. Megatron's
+    conjugate pairs, each twice differentiable (CTGAN's gradient penalty
+    differentiates through them twice), carry a value between whole
+    ("R") and sliced ("S") forms over the model group:
+      - `gather_model` (S -> R): all-gather forward; its backward keeps
+        the rank's own slice of the (whole) gradient (`split_model`);
+      - `split_model` (R -> S): the rank's slice forward; all-gather
+        backward;
+      - `enter_model` (R -> R, before a sliced computation reads a whole
+        value): identity forward; SUM all-reduce backward (`model_sum`),
+        since each rank's gradient holds only its slice's part;
+      - `model_sum` (partial -> R): SUM all-reduce forward; identity
+        backward.
+    Gradients of replicated leaves are computed alike on every model rank
+    and are never summed over 'model'; `core.state` sums every gradient
+    over the 'data' group only, which under a 2-D mesh holds the ranks of
+    one model coordinate, so slices sum with their peers.
 
 `COLLECTIVES` counts the collectives this module has issued.
 """
@@ -271,13 +291,24 @@ def _by_dtype(tensors: Sequence[torch.Tensor]) -> Dict[torch.dtype, List[int]]:
 
 @torch.no_grad()
 def broadcast(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
-    """Copy the first rank's `tensors` (coordinate 0 on both axes) to
-    every rank of the mesh, in place: one flat broadcast per dtype and
-    axis. Tensors on the CPU travel through the mesh's device."""
+    """Copy the first rank's `tensors` to every rank of the mesh, in place:
+    a replicated tensor from coordinate 0 on both axes, a tensor `place`
+    left sliced over 'model' (`ModelShard`) from data coordinate 0 of the
+    rank's own model coordinate, so each keeps its slice. One flat
+    broadcast per dtype, kind and axis. Tensors on the CPU travel through
+    the mesh's device."""
     global COLLECTIVES
-    for idx in _by_dtype(tensors).values():
+    for t in tensors:
+        shard = shard_of(t)
+        if shard is not None and shard.mesh is not mesh:
+            raise ValueError(f"a tensor placed on {shard.mesh} is broadcast over {mesh}: "
+                             "place the state on the mesh it runs on")
+    kinds = {}
+    for i, t in enumerate(tensors):
+        kinds.setdefault((t.dtype, shard_of(t) is None), []).append(i)
+    for (_, whole), idx in kinds.items():
         flat = torch.cat([tensors[i].reshape(-1).to(_device(mesh)) for i in idx])
-        for axis in AXES:
+        for axis in AXES if whole else ("data",):
             group = mesh.group(axis)
             COLLECTIVES += 1
             dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
@@ -317,6 +348,180 @@ def broadcast_generator(generator: torch.Generator, mesh: Mesh) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The 'model' axis: placement and its collectives
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """Where `place` left a leaf: this rank holds the contiguous block of
+    the whole leaf along `dim` at its 'model' coordinate of `mesh` (the
+    whole leaf on a 'model' axis of size 1)."""
+
+    mesh: Mesh
+    dim: int
+
+    @property
+    def n(self) -> int:
+        return self.mesh.shape["model"]
+
+    @property
+    def index(self) -> int:
+        return self.mesh.local_rank("model")
+
+    @property
+    def group(self):
+        return self.mesh.group("model")
+
+
+#: the attribute of a placed tensor that holds its `ModelShard`
+_SHARD_ATTR = "model_shard"
+
+
+def shard_of(t: Optional[torch.Tensor]) -> Optional[ModelShard]:
+    """The `ModelShard` `place` left on `t`, or None (replicated, unplaced,
+    or no tensor)."""
+    return getattr(t, _SHARD_ATTR, None)
+
+
+def _gather(x: torch.Tensor, dim: int, shard: ModelShard) -> torch.Tensor:
+    """All-gather of every model rank's block of `x` along `dim`, in rank
+    order: the whole tensor (a new one, contiguous)."""
+    global COLLECTIVES
+    x = x.contiguous()
+    out = x.new_empty((shard.n * x.shape[0], *x.shape[1:]))
+    COLLECTIVES += 1
+    dist.all_gather_into_tensor(out, x, group=shard.group)
+    if dim == 0:
+        return out
+    shape = list(x.shape)
+    shape[dim] *= shard.n
+    return out.view(shard.n, *x.shape).movedim(0, dim).reshape(shape)
+
+
+def local_part(x: torch.Tensor, shard: Optional[ModelShard], dim: Optional[int] = None
+               ) -> torch.Tensor:
+    """This rank's block of the whole tensor `x` along `dim` (the shard's
+    by default), as `place` slices a leaf; `x` itself for no shard."""
+    if shard is None:
+        return x
+    dim = shard.dim if dim is None else dim
+    size = x.shape[dim] // shard.n
+    if size * shard.n != x.shape[dim]:
+        raise ValueError(f"axis {dim} of {tuple(x.shape)} does not divide into "
+                         f"{shard.n} 'model' slices")
+    return x.narrow(dim, shard.index * size, size)
+
+
+class _GatherModel(torch.autograd.Function):
+    """S -> R along the last axis: all-gather forward, the rank's slice of
+    the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return _gather(x, x.dim() - 1, shard)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _SplitModel.apply(grad, ctx.shard), None
+
+
+class _SplitModel(torch.autograd.Function):
+    """R -> S along the last axis: the rank's slice forward, all-gather
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return local_part(x, shard, x.dim() - 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherModel.apply(grad, ctx.shard), None
+
+
+class _EnterModel(torch.autograd.Function):
+    """Identity forward; SUM all-reduce over 'model' backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ModelSum.apply(grad, ctx.shard), None
+
+
+class _ModelSum(torch.autograd.Function):
+    """SUM all-reduce over 'model' forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        y = x.clone()
+        _all_reduce(y, shard.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _EnterModel.apply(grad, ctx.shard), None
+
+
+def gather_model(x: torch.Tensor, shard: Optional[ModelShard]) -> torch.Tensor:
+    """The whole of `x` from every model rank's slice of its last axis
+    (differentiable); `x` itself for no shard."""
+    return x if shard is None else _GatherModel.apply(x, shard)
+
+
+def split_model(x: torch.Tensor, shard: Optional[ModelShard]) -> torch.Tensor:
+    """This model rank's slice of the last axis of the whole `x`
+    (differentiable); `x` itself for no shard."""
+    return x if shard is None else _SplitModel.apply(x, shard)
+
+
+def enter_model(x: torch.Tensor, shard: Optional[ModelShard]) -> torch.Tensor:
+    """`x`, whole on every model rank, as the input of a sliced computation:
+    its gradient is summed over 'model' (differentiable); `x` itself for
+    no shard."""
+    return x if shard is None else _EnterModel.apply(x, shard)
+
+
+def model_sum(x: torch.Tensor, shard: Optional[ModelShard]) -> torch.Tensor:
+    """SUM of every model rank's partial `x` (differentiable); `x` itself
+    for no shard."""
+    return x if shard is None else _ModelSum.apply(x, shard)
+
+
+def whole(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A 1-D leaf whole: gathered over 'model' (differentiable) where
+    `place` sliced it, else itself (None for None)."""
+    return gather_model(t, shard_of(t)) if t is not None else None
+
+
+@torch.no_grad()
+def gather_leaf(t: torch.Tensor) -> torch.Tensor:
+    """The whole leaf from the slices of every model rank (a new tensor,
+    without gradient); `t` itself where it is not sliced. Every rank of
+    the leaf's model group calls it."""
+    shard = shard_of(t)
+    return t if shard is None else _gather(t.detach(), shard.dim, shard)
+
+
+def _whole_shape(t: torch.Tensor) -> List[int]:
+    """The shape of the whole leaf of which `t` may be a slice."""
+    shape, shard = list(t.shape), shard_of(t)
+    if shard is not None:
+        shape[shard.dim] *= shard.n
+    return shape
+
+
+def placement_key(tensors: Sequence[torch.Tensor]) -> tuple:
+    """What a captured graph or a cache of `tensors` depends on beyond
+    their values: each tensor's storage, shape and `ModelShard`. `place`
+    changes all three."""
+    return tuple((t.data_ptr(), tuple(t.shape), shard_of(t)) for t in tensors)
+
+
+# ---------------------------------------------------------------------------
 # Specs ('model' axis)
 class P(tuple):
     """A partition spec, as JAX's `PartitionSpec`: per leading axis of a
@@ -352,37 +557,51 @@ def _leaf_spec(shape, n_model: int) -> P:
     return P()
 
 
-def _networks(state: nn.Module, prefix: str = ""):
-    """(name, network) of a trainer state: its networks, and each
-    generator of a list of them (TMG-GAN's `gens`) as `name.i`."""
+def _networks(state: nn.Module):
+    """(name, network, stack) of a trainer state: its networks (stack
+    None), and each generator of a list of them (TMG-GAN's `gens`) as
+    `name.i`, with stack the list's length: the JAX package stacks such a
+    list's leaves on a leading axis of that length."""
     for name, net in state.items() if isinstance(state, nn.ModuleDict) else [("", state)]:
-        path = f"{prefix}{name}"
         if isinstance(net, (nn.ModuleList, nn.ModuleDict)):
-            for i, sub in enumerate(net.values() if isinstance(net, nn.ModuleDict) else net):
-                yield f"{path}.{i}", sub
+            members = list(net.values() if isinstance(net, nn.ModuleDict) else net)
+            for i, sub in enumerate(members):
+                yield f"{name}.{i}", sub, len(members)
         else:
-            yield path, net
+            yield name, net, None
 
 
-def shard_net_state(state, mesh: Mesh):
+def shard_net_state(state, mesh: Mesh, n_model: Optional[int] = None):
     """Per-leaf shardings of a state: for a mapping of arrays or tensors,
     the same mapping of `NamedSharding`s by `_leaf_spec` of each leaf's
     shape, as the JAX package's; for a trainer's `nn.ModuleDict`, `{network:
     {Flax path: NamedSharding}}` with each spec taken on the leaf's shape in
     the Flax layout (`convert.net_leaves`: a Dense weight `[out, in]` is
     the kernel `[in, out]`), so the specs equal the JAX package's for the
-    same weights. An Adam moment mirrors its parameter's spec."""
-    n_model = mesh.shape.get("model", 1)
+    same weights. A generator of TMG-GAN's list `gens` (JAX stacks them)
+    takes the spec of its leaf's stacked shape `[L, *shape]` without the
+    leading axis: its Dense kernels `[L, in, out]` are replicated, its
+    biases and BatchNorm leaves `[L, out]` sharded on their feature axis.
+    An Adam moment mirrors its parameter's spec. `n_model` takes the specs
+    a 'model' axis of that size would give (the mesh's by default)."""
+    n_model = mesh.shape.get("model", 1) if n_model is None else n_model
     if isinstance(state, nn.Module):
         from cvaegan_tpu_torch.convert import net_leaves
 
         out = {}
-        for name, net in _networks(state):
-            out[name] = {
-                path: NamedSharding(mesh, _leaf_spec(
-                    tuple(tensor.shape)[::-1] if transposed else tuple(tensor.shape),
-                    n_model))
-                for path, (tensor, transposed) in net_leaves(net).items()}
+        for name, net, stack in _networks(state):
+            specs = {}
+            for path, (tensor, transposed) in net_leaves(net).items():
+                shape = tuple(tensor.shape)[::-1] if transposed else tuple(tensor.shape)
+                if stack is None:
+                    specs[path] = NamedSharding(mesh, _leaf_spec(shape, n_model))
+                    continue
+                spec = _leaf_spec((stack, *shape), n_model)
+                lead, *rest = spec or (None,)
+                if lead is not None:  # a stacked scalar: not a network leaf
+                    raise ValueError(f"{name}/{'/'.join(path)}: spec {spec} shards the stack")
+                specs[path] = NamedSharding(mesh, P(*rest))
+            out[name] = specs
         return out
 
     def walk(tree):
@@ -403,21 +622,79 @@ def _leaves(shardings):
             yield from _leaves(v)
 
 
+def _paired(state, shardings):
+    """(tensor, NamedSharding, torch dim of its 'model' axis or None) of
+    every leaf `shardings` names: a trainer state's by network and Flax
+    path, a mapping's by key."""
+    if isinstance(state, nn.Module):
+        from cvaegan_tpu_torch.convert import net_leaves
+
+        nets = {name: net for name, net, _ in _networks(state)}
+        for name, specs in shardings.items():
+            leaves = net_leaves(nets[name])
+            for path, sharding in specs.items():
+                tensor, transposed = leaves[path]
+                yield tensor, sharding, _model_dim(sharding.spec, tensor.dim(), transposed,
+                                                   f"{name}/{'/'.join(path)}")
+        return
+    for key, sharding in shardings.items():
+        if not isinstance(sharding, NamedSharding):
+            yield from _paired(state[key], sharding)
+        elif isinstance(state[key], torch.Tensor):
+            yield state[key], sharding, _model_dim(sharding.spec, state[key].dim(), False, key)
+        elif "model" in sharding.spec:
+            raise TypeError(f"{key}: only a tensor can be sliced over 'model', "
+                            f"not {type(state[key]).__name__}")
+
+
+def _model_dim(spec: P, ndim: int, transposed: bool, what: str) -> Optional[int]:
+    """The torch axis a spec (in the Flax layout) shards over 'model'."""
+    if len(spec) > ndim or any(a not in (None, "model") for a in spec) or list(spec).count(
+            "model") > 1:
+        raise ValueError(f"{what}: spec {spec} for a leaf of {ndim} axes: the port shards "
+                         "parameters over one axis of 'model' (the batch goes over 'data')")
+    if "model" not in spec:
+        return None
+    dim = spec.index("model")
+    return ndim - 1 - dim if transposed else dim
+
+
+@torch.no_grad()
 def place(state, shardings, optimizers: Optional[dict] = None):
-    """Put a state onto its shardings: replicated leaves are made equal on
-    every rank of the mesh (the first rank's are broadcast, with the
-    optimizers' tensors where given). A 'model'-sharded spec raises:
-    tensor parallelism is not ported (ROADMAP A27)."""
-    leaves = list(_leaves(shardings))
-    if any("model" in s.spec for s in leaves):
-        raise NotImplementedError(
-            "place onto a 'model'-sharded spec: tensor parallelism over the mesh's "
-            "'model' axis is not ported (ROADMAP A27); use a mesh of n_model=1 or "
-            "replicated specs")
+    """Put a state onto its shardings, as `jax.device_put` does: every
+    leaf first holds the first rank's whole value (a leaf `place` sliced
+    before is gathered first), then each rank keeps, of a leaf whose spec
+    names 'model', the contiguous block at its 'model' coordinate (the
+    whole leaf on a 'model' axis of size 1), and of its Adam moments in
+    `optimizers` the same block; counts and replicated leaves stay whole.
+    A tensor is sliced in place (`.data`), so the modules and optimizers
+    that hold it keep it, and it carries its `ModelShard` (`shard_of`).
+    Returns `state`."""
+    pairs = list(_paired(state, shardings))
+    for tensor, sharding, dim in pairs:
+        n, shape = sharding.mesh.shape["model"], _whole_shape(tensor)
+        if dim is not None and shape[dim] % n:
+            raise ValueError(f"a leaf of shape {tuple(shape)} does not divide into {n} "
+                             f"'model' slices along axis {dim}")
+    slots = {id(p): (opt, i) for opt in (optimizers or {}).values()
+             for i, p in enumerate(opt.params)}
     tensors = [*state_tensors(state),
                *(t for opt in (optimizers or {}).values() for t in opt.tensors())]
-    for mesh in {id(s.mesh): s.mesh for s in leaves}.values():
+    for t in tensors:  # back to whole leaves
+        if shard_of(t) is not None:
+            t.data = gather_leaf(t)
+            delattr(t, _SHARD_ATTR)
+    for mesh in {id(s.mesh): s.mesh for s in _leaves(shardings)}.values():
         broadcast(tensors, mesh)
+    for tensor, sharding, dim in pairs:
+        if dim is None:
+            continue
+        shard = ModelShard(sharding.mesh, dim)
+        opt, i = slots.get(id(tensor), (None, None))
+        moments = [] if opt is None else [opt.m[i], opt.v[i]]
+        for t in (tensor, *moments):
+            t.data = local_part(t.data, shard).clone()
+            setattr(t, _SHARD_ATTR, shard)
     return state
 
 

@@ -11,6 +11,14 @@ A checkpoint is a directory of two files:
 The format is not the JAX package's Orbax format: neither package reads
 the other's checkpoints.
 
+Under a placement (`parallel.mesh.place` over the mesh's 'model' axis) a
+save writes whole leaves, gathered from the slices (every rank of the
+group calls it; the first rank of the process group writes), as the JAX
+package saves `jax.device_get` of the state, which gives global arrays:
+so a checkpoint from a 4x2 fit restores in a single process. A restore
+into a placed trainer copies each rank's block of every whole leaf into
+its slice: the restore re-places the state.
+
 A save writes a temporary directory beside `path` and moves it into
 place with `os.replace`, so a reader finds the old checkpoint or the new
 one, never half of one. A restore copies every tensor into the trainer's
@@ -30,20 +38,30 @@ import shutil
 import tempfile
 
 import torch
+import torch.distributed as dist
+
+from cvaegan_tpu_torch.parallel.mesh import gather_leaf, local_part, shard_of
 
 
 def save_checkpoint(trainer, path) -> pathlib.Path:
-    """Save a trainer's state and metadata into the directory `path`."""
+    """Save a trainer's state and metadata into the directory `path`. In a
+    process group every rank calls it (a placed state's leaves are
+    gathered), rank 0 writes, and every rank returns once it has."""
     if trainer.state is None:
         raise RuntimeError(f"{trainer.name}: nothing to checkpoint; call fit() first")
     path = pathlib.Path(path).resolve()
+    saved = {"state": {k: gather_leaf(t).detach() for k, t in
+                       trainer.state.state_dict(keep_vars=True).items()},
+             "optimizers": {name: [gather_leaf(t) for t in opt.tensors()]
+                            for name, opt in trainer.optimizers.items()},
+             "generator": trainer.generator.get_state()}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        dist.barrier()  # every rank holds the same whole state: rank 0 writes it
+        return path
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix=f".{path.name}.", dir=path.parent))
     try:
-        torch.save({"state": trainer.state.state_dict(),
-                    "optimizers": {name: opt.tensors()
-                                   for name, opt in trainer.optimizers.items()},
-                    "generator": trainer.generator.get_state()}, tmp / "state.pt")
+        torch.save(saved, tmp / "state.pt")
         meta = {"name": trainer.name, "feature_num": trainer.feature_num,
                 "label_num": trainer.label_num,
                 "loss_history": {k: list(map(float, v))
@@ -61,6 +79,8 @@ def save_checkpoint(trainer, path) -> pathlib.Path:
     finally:
         if tmp.exists():
             shutil.rmtree(tmp)
+    if dist.is_initialized():
+        dist.barrier()
     return path
 
 
@@ -77,11 +97,20 @@ def restore_checkpoint(trainer, path, dataset) -> None:
             f"labels={meta['label_num']}) vs dataset (features={trainer.feature_num}, "
             f"labels={trainer.label_num})")
     saved = torch.load(path / "state.pt", map_location=trainer.device, weights_only=True)
-    trainer.state.load_state_dict(saved["state"])
+    state = trainer.state.state_dict(keep_vars=True)
+    if set(state) != set(saved["state"]):
+        raise ValueError(f"checkpoint keys differ from the state's: "
+                         f"{sorted(set(state) ^ set(saved['state']))}")
+    pairs = [(state[k], saved["state"][k]) for k in state]
+    for name, opt in trainer.optimizers.items():
+        pairs += list(zip(opt.tensors(), saved["optimizers"][name], strict=True))
     with torch.no_grad():
-        for name, opt in trainer.optimizers.items():
-            for dst, src in zip(opt.tensors(), saved["optimizers"][name], strict=True):
-                dst.copy_(src)
+        for dst, src in pairs:
+            src = local_part(src, shard_of(dst))
+            if src.shape != dst.shape:
+                raise ValueError(f"checkpoint tensor of shape {tuple(src.shape)} for a "
+                                 f"tensor of {tuple(dst.shape)}")
+            dst.copy_(src)
     if meta["device_type"] == trainer.device.type:
         trainer.generator.set_state(saved["generator"].cpu())  # a host ByteTensor
     else:

@@ -18,16 +18,18 @@ import numpy as np
 from torch import nn
 
 from cvaegan_tpu_torch.convert import net_leaves
+from cvaegan_tpu_torch.parallel.mesh import gather_leaf
 
 
 def first_dense_kernel(net: nn.Module) -> Optional[np.ndarray]:
-    """The JAX `[in, out]` kernel of the network's first dense layer."""
+    """The JAX `[in, out]` kernel of the network's first dense layer (whole:
+    gathered over 'model' where `parallel.mesh.place` sliced it)."""
     kernels = sorted(path for path in net_leaves(net)
                      if path[0] == "params" and path[-1] == "kernel")
     if not kernels:
         return None
     tensor, _ = net_leaves(net)[kernels[0]]
-    return tensor.detach().cpu().numpy().T
+    return gather_leaf(tensor).detach().cpu().numpy().T
 
 
 def first_layer_importance(net: nn.Module) -> Optional[np.ndarray]:

@@ -7,9 +7,9 @@ test's temporary directory, one torch thread per rank); the tests read
 its results. The JAX side runs here, on conftest's 8 virtual CPU
 devices, and arrays travel as numpy.
 
-  * mesh construction, `shard_leading`, the JAX package's errors, and the
-    'model' axis: `shard_net_state`'s specs equal JAX's for a converted
-    CVAE-GAN state, and `place` onto them raises (ROADMAP A27);
+  * mesh construction, `shard_leading`, the JAX package's errors, and
+    `shard_net_state`'s specs equal JAX's for a converted CVAE-GAN state
+    (the 'model' axis itself: `test_torch_port_tensor_parallel.py`);
   * the CVAE-GAN's D, C and E+G steps on one fixed global batch of 64 rows
     (and the same dropout keep-masks, served to Flax's
     `jax.random.bernoulli` and to each rank's slice of them), on 4 ranks
@@ -266,14 +266,6 @@ def test_shard_net_state_specs_equal_jax(worlds):
                                          **jax_specs[net].mutables})) for net in specs)
     assert {s for leaves in specs.values() for s in leaves.values()} == {
         (), (None, "model"), ("model",)}
-
-
-def test_place_refuses_model_axis(worlds):
-    out = job(worlds[4], "mesh_basics")
-    for res in out:
-        assert "A27" in res["place_model"] and "model" in res["place_model"]
-    # replicated specs: every rank holds the first rank's state
-    assert len({res["placed"] for res in out}) == 1
 
 
 # ----------------------------------------------------------------- steps

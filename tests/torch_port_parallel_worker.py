@@ -1,5 +1,6 @@
 """One rank of a gloo world for the port's multi-device tests
-(`tests/test_torch_port_parallel.py`, `tests/test_torch_port_ring_attention.py`).
+(`tests/test_torch_port_parallel.py`, `tests/test_torch_port_ring_attention.py`,
+`tests/test_torch_port_tensor_parallel.py`).
 
     python tests/torch_port_parallel_worker.py <spec.pkl> <rank>
 
@@ -13,6 +14,7 @@ runs in the test process, and arrays travel as numpy.
 
 from __future__ import annotations
 
+import copy
 import datetime
 import hashlib
 import os
@@ -20,6 +22,7 @@ import pathlib
 import pickle
 import subprocess
 import sys
+import time
 import traceback
 
 import numpy as np
@@ -105,20 +108,6 @@ def job_mesh_basics(tree, x, y):
     shardings = mesh_lib.shard_net_state(port.state, mesh)
     out["specs"] = {net: {"/".join(p): tuple(s.spec) for p, s in leaves.items()}
                     for net, leaves in shardings.items()}
-    try:
-        mesh_lib.place(port.state, shardings, port.optimizers)
-        out["place_model"] = None
-    except NotImplementedError as e:
-        out["place_model"] = str(e)
-    # replicated specs place: the first rank's state on every rank
-    if dist.get_rank():
-        with torch.no_grad():
-            for p in port.state.parameters():
-                p.add_(1.0)
-    data_mesh = mesh_lib.make_mesh(world, 1)
-    mesh_lib.place(port.state, mesh_lib.shard_net_state(port.state, data_mesh),
-                   port.optimizers)
-    out["placed"] = digest(port.state.state_dict().values())
     return out
 
 
@@ -177,18 +166,31 @@ def draw_moments(trainer, seed: int = 5) -> None:
             opt.count.fill_(3)
 
 
-def one_epoch(name, x, y, batch_size, mesh):
+def one_epoch(name, x, y, batch_size, mesh, placed=False):
     """One epoch of trainer `name` from seed 0 and drawn Adam moments,
-    under `mesh` (or none)."""
+    under `mesh` (or none); `placed`: on the state placed with
+    `shard_net_state`'s specs (`whole` is then the digest of its gathered
+    leaves)."""
     cls = getattr(cvaegan_tpu_torch, name)
     model = cls(seed=0, device="cpu", settings=settings(batch_size))
     model.verbose = False
     with mesh_lib.use_mesh(mesh):
         model._prepare((x, y))
         draw_moments(model)
+        if placed:
+            place(model, mesh)
         model._fit_prepared(1)
-    return {"losses": {k: v[0] for k, v in model.loss_history.items()},
-            "digest": digest(model._static_tensors()[:-1])}
+    out = {"losses": {k: v[0] for k, v in model.loss_history.items()},
+           "digest": digest(model._static_tensors()[:-1])}
+    if placed:
+        out["whole"] = digest(mesh_lib.gather_leaf(t) for t in model._static_tensors()[:-1])
+    return out
+
+
+def place(trainer, mesh, n_model=None):
+    """Place a trainer's state and optimizers on `shard_net_state`'s specs."""
+    mesh_lib.place(trainer.state, mesh_lib.shard_net_state(trainer.state, mesh, n_model),
+                   trainer.optimizers)
 
 
 def job_epochs(names, x, y, batch_size):
@@ -204,8 +206,8 @@ def job_epoch_2x2(x, y, batch_size):
     return one_epoch("CVAEGAN", x, y, batch_size, mesh)
 
 
-def job_seed_bank(x, y, batch_size, seeds, epochs):
-    mesh = mesh_lib.make_mesh(dist.get_world_size(), 1)
+def job_seed_bank(x, y, batch_size, seeds, epochs, n_model=1):
+    mesh = mesh_lib.make_mesh(dist.get_world_size() // n_model, n_model)
     bank = cvaegan_tpu_torch.SeedBank(cvaegan_tpu_torch.CVAEGAN, seeds=seeds,
                                       settings=settings(batch_size, epochs),
                                       device="cpu", mesh=mesh)
@@ -214,6 +216,7 @@ def job_seed_bank(x, y, batch_size, seeds, epochs):
            "digests": [digest(t._static_tensors()[:-1]) for t in trainers],
            "rng": [digest([t.generator.get_state()]) for t in trainers],
            "held": [t.seed for t in bank._held],
+           "held_digests": [digest(t._static_tensors()[:-1]) for t in bank._held],
            "steps_per_sec_positive": bank.steps_per_sec > 0}
     try:
         cvaegan_tpu_torch.SeedBank(cvaegan_tpu_torch.CVAEGAN, seeds=seeds[:-1],
@@ -242,11 +245,277 @@ def job_ring(cases):
     return out
 
 
+# ------------------------------------------------- tensor parallelism
+def _model_mesh():
+    """The ('data', world / 2, 'model' 2) mesh of the world."""
+    return mesh_lib.make_mesh(dist.get_world_size() // 2, 2)
+
+
+def _trainer(name, tree, x, y, batch_size=32):
+    model = getattr(cvaegan_tpu_torch, name)(seed=0, device="cpu",
+                                            settings=settings(batch_size))
+    model.verbose = False
+    model._prepare((x, y))
+    model.load_jax_state(tree)
+    return model
+
+
+def _flax_leaves(trainer, gather=False):
+    """Every network leaf of a trainer (its own slice, or gathered whole),
+    and each parameter's Adam moments (`#mu`, `#nu`), by `network/Flax
+    path`, in the Flax layout, as numpy."""
+    out = {}
+    for name, net, _ in mesh_lib._networks(trainer.state):
+        opt = trainer.optimizers.get(name)
+        slot = {id(p): i for i, p in enumerate(opt.params)} if opt else {}
+        for path, (tensor, transposed) in net_leaves(net).items():
+            key = f"{name}/{'/'.join(path)}"
+            leaves = {key: tensor}
+            if id(tensor) in slot:
+                leaves[key + "#mu"] = opt.m[slot[id(tensor)]]
+                leaves[key + "#nu"] = opt.v[slot[id(tensor)]]
+            for k, t in leaves.items():
+                t = (mesh_lib.gather_leaf(t) if gather else t).detach()
+                out[k] = (t.T if transposed else t).numpy().copy()
+    return out
+
+
+def job_tp_place(trees, x, y):
+    """A converted CVAE-GAN and TMG-GAN placed on the (world/2, 2) mesh:
+    each rank's slices and the gathered leaves; and a state placed on
+    replicated specs after the ranks' states were made to differ."""
+    mesh = _model_mesh()
+    out = {}
+    for name, tree in trees.items():
+        model = _trainer(name, tree, x, y)
+        place(model, mesh)
+        before = digest(model._static_tensors()[:-1])
+        model._sync_ranks(mesh)  # as a fit under the mesh does: slices stay
+        out[name] = {"synced_unchanged": digest(model._static_tensors()[:-1]) == before,
+                     "local": _flax_leaves(model),
+                     "whole": _flax_leaves(model, gather=True),
+                     "counts": {k: int(o.count) for k, o in model.optimizers.items()},
+                     "shards": sum(mesh_lib.shard_of(t) is not None
+                                   for t in model._static_tensors())}
+    mapping = {"kernel": torch.arange(24.0).reshape(4, 6), "odd": torch.zeros(4, 3),
+               "nested": {"scale": torch.arange(8.0)}, "step": 3}
+    mesh_lib.place(mapping, mesh_lib.shard_net_state(mapping, mesh))
+    out["mapping"] = {"kernel": mapping["kernel"].numpy(), "odd": tuple(mapping["odd"].shape),
+                      "scale": mapping["nested"]["scale"].numpy(),
+                      "whole": mesh_lib.gather_leaf(mapping["kernel"]).numpy()}
+    model = _trainer("CVAEGAN", trees["CVAEGAN"], x, y)
+    if dist.get_rank():
+        with torch.no_grad():
+            for p in model.state.parameters():
+                p.add_(1.0)
+    mesh_lib.place(model.state, mesh_lib.shard_net_state(model.state, mesh, n_model=1),
+                   model.optimizers)
+    out["replicated"] = digest(model.state.state_dict().values())
+    try:
+        mesh_lib.place(model.state, {"generator": {("params", "Dense_0", "kernel"):
+                                                   mesh_lib.NamedSharding(mesh, mesh_lib.P(
+                                                       "data", None))}})
+        out["data_spec"] = None
+    except ValueError as e:
+        out["data_spec"] = str(e)
+    return out
+
+
+def job_tp_steps(tree, x, y, batch_size, inputs, masks, epoch):
+    """The CVAE-GAN's D, C and E+G steps, as `job_cvaegan_steps`, on the
+    (world/2, 2) mesh with the state placed: each step's loss and the
+    gathered state (rank 0's), and digests of the local and the gathered
+    state."""
+    queue = [m for step in ("d", "c", "g") for m in masks[step]]
+
+    def keep_mask(x_, keep_prob, generator):
+        mask = torch.from_numpy(queue.pop(0))
+        return mesh_lib.local_draw(lambda shape: mask, x_.shape)
+
+    plain, tl._keep_mask = tl._keep_mask, keep_mask
+    mesh = _model_mesh()
+    out = {}
+    try:
+        for kind in ("d", "c", "g"):
+            port = _trainer("CVAEGAN", tree, x, y, batch_size)
+            place(port, mesh)
+            with mesh_lib.use_mesh(mesh), mesh_lib.data_parallel(batch_size):
+                t = [mesh_lib.shard_leading(torch.from_numpy(a)) for a in inputs[kind]]
+                if kind == "g":
+                    lam = progressive_lambda(torch.tensor(epoch), 0.5, 200, 500)
+                    got = port._g_step(t[0], t[1].long(), t[2], t[3], lam)
+                    loss = {k: float(v) for k, v in got.items()}
+                else:
+                    step = port._d_step if kind == "d" else port._c_step
+                    loss = float(step(t[0], t[1].long(), t[2]))
+            whole = _flax_leaves(port, gather=True)
+            out[kind] = {"loss": loss, "rows": int(t[0].shape[0]),
+                         "local": digest(port._static_tensors()[:-1]),
+                         "whole": digest(torch.from_numpy(v) for v in whole.values()),
+                         "state": whole if dist.get_rank() == 0 else None,
+                         "counts": {k: int(o.count) for k, o in port.optimizers.items()}}
+    finally:
+        tl._keep_mask = plain
+    assert not queue, len(queue)
+    return out
+
+
+def job_tp_spectral(forwards):
+    """SpectralDense layers (rows and v sliced; weight replicated with v
+    sliced; rows sliced with v whole) placed on the (world/2, 2) mesh:
+    `forwards` train forwards and one eval forward, each layer's gathered
+    u, v, sigma, outputs and weight gradient beside an unplaced copy's."""
+    mesh = _model_mesh()
+    out = {}
+    for in_f, out_f in ((8, 16), (64, 1), (35, 4)):
+        g = torch.Generator().manual_seed(in_f * 100 + out_f)
+        layer = tl.SpectralDense(in_f, out_f)
+        layer.init_from(g)
+        x = torch.randn(6, in_f, generator=g)
+        c = torch.randn(6, out_f, generator=g) / (6 * out_f)  # gradients of order 1
+        ref = copy.deepcopy(layer)
+        place_module(layer, mesh)
+        res = {}
+        for name, m in (("placed", layer), ("plain", ref)):
+            m.train()
+            for _ in range(forwards):
+                y = m(x)
+            (y * c).sum().backward()
+            m.eval()
+            ev = m(x)
+            with torch.no_grad():
+                v = mesh_lib.gather_leaf(m.v)
+                w = mesh_lib.gather_leaf(m.weight)
+                u = mesh_lib.gather_leaf(m.u)
+                sigma = torch.dot(u, w @ v)
+            res[name] = {"u": u.numpy().copy(), "v": v.numpy().copy(),
+                         "sigma": float(sigma), "train_out": y.detach().numpy(),
+                         "eval_out": ev.detach().numpy(),
+                         "grad": _whole_grad(m.weight)}
+        res["sliced"] = {k: mesh_lib.shard_of(getattr(layer, k)) is not None
+                         for k in ("weight", "u", "v")}
+        out[(in_f, out_f)] = res
+    return out
+
+
+def _whole_grad(param):
+    """A parameter's gradient, gathered whole where the parameter is sliced."""
+    shard = mesh_lib.shard_of(param)
+    grad = param.grad if shard is None else mesh_lib._gather(param.grad, shard.dim, shard)
+    return grad.numpy().copy()
+
+
+def place_module(module, mesh, n_model=None):
+    mesh_lib.place(module, mesh_lib.shard_net_state(module, mesh, n_model))
+
+
+def job_tp_epochs(names, x, y, batch_size):
+    """One epoch of each trainer on the placed state under the
+    (world/2, 2) mesh."""
+    mesh = _model_mesh()
+    mesh_lib.COLLECTIVES = 0
+    out = {name: one_epoch(name, x, y, batch_size, mesh, placed=True) for name in names}
+    out["collectives"] = mesh_lib.COLLECTIVES
+    return out
+
+
+def job_tp_fits(names, x, y, batch_size, epochs, loops=None):
+    """`fit` of `epochs` epochs of each trainer placed on the (world/2, 2)
+    mesh, under it (the fit first syncs the ranks, slices kept; `loops`
+    steps of each kind per class round, the settings' by default), then 8
+    qualified samples of class 0."""
+    mesh = _model_mesh()
+    out = {}
+    for name in names:
+        s = settings(batch_size, epochs)
+        if loops is not None:
+            s.gan.d_loop_num = s.gan.c_loop_num = s.gan.g_loop_num = loops
+        model = getattr(cvaegan_tpu_torch, name)(seed=0, device="cpu", settings=s)
+        model.verbose = False
+        model._prepare((x, y))
+        place(model, mesh)
+        with mesh_lib.use_mesh(mesh):
+            model.fit((x, y))
+            try:
+                q = model.generate_qualified_samples(0, 8, confidence_threshold=0.0)
+            except TypeError:  # TMG-GAN's filter takes no threshold
+                q = model.generate_qualified_samples(0, 8)
+        out[name] = {"history": {k: list(v) for k, v in model.loss_history.items()},
+                     "qualified": q}
+    return out
+
+
+def job_tp_serving(tree, x, y):
+    """The CVAE-GAN's serving entry points on a placed state and on an
+    unplaced one from the same tree and generator state."""
+    mesh = _model_mesh()
+    placed, plain = _trainer("CVAEGAN", tree, x, y), _trainer("CVAEGAN", tree, x, y)
+    place(placed, mesh)
+    out = {}
+    for name, m in (("placed", placed), ("plain", plain)):
+        fast = m.generate_samples_fast(3, 40)
+        out[name] = {"samples": m.generate_samples(1, 40),
+                     "reconstructed": m.reconstruct_samples(x[:24], y[:24]),
+                     "fast": fast, "fast_again": m.generate_samples_fast(3, 40),
+                     "cached_fold": "fast_fold" in m._gen_cache}
+    return out
+
+
+def job_tp_capture_key(x, y, batch_size, ckpt):
+    """A 1-epoch fit, `place`, a second fit: the capture key before and
+    after, and the captures a stand-in for `capture_graphs` was asked for
+    (the CPU has no CUDA graph); then a checkpoint of the placed state
+    saved into `ckpt` and restored into another placed trainer."""
+    from cvaegan_tpu_torch.algorithms import base
+    from cvaegan_tpu_torch.utils import checkpoint
+
+    mesh = _model_mesh()
+    captured = []
+
+    class Graph:
+        def __init__(self, body):
+            self.replay = body
+
+    def capture(bodies, warm_up, static, generators, device):
+        captured.append([tuple(t.shape) for t in static])
+        return [Graph(body) for body in bodies]
+
+    model = cvaegan_tpu_torch.CVAEGAN(seed=0, device="cpu", settings=settings(batch_size))
+    model.verbose = False
+    out = {}
+    plain, base.capture_graphs = base.capture_graphs, capture
+    try:
+        with mesh_lib.use_mesh(mesh):
+            model._prepare((x, y))
+            with mesh_lib.data_parallel(batch_size):
+                model._captured_epoch()()
+                before = model._capture_key()
+                place(model, mesh)
+                model._captured_epoch()()
+                after = model._capture_key()
+                model._captured_epoch()()  # the placed capture is kept
+    finally:
+        base.capture_graphs = plain
+    out["key_changed"] = before != after
+    out["stale_kept"] = before in model._graphs
+    out["captures"] = captured
+    checkpoint.save_checkpoint(model, ckpt)  # rank 0 writes; returns once it has
+    out["whole"] = _flax_leaves(model, gather=True)
+    other = cvaegan_tpu_torch.CVAEGAN(seed=1, device="cpu", settings=settings(batch_size))
+    other.verbose = False
+    other._prepare((x, y))
+    place(other, mesh)
+    checkpoint.restore_checkpoint(other, ckpt, (x, y))
+    out["restored_local_equal"] = digest(other._static_tensors()[:-1]) == digest(
+        model._static_tensors()[:-1])
+    return out
+
+
 # ------------------------------------------------------------ the world
-def start_world(tmp, world: int, jobs):
+def start_world(tmp, world: int, jobs, wait_seconds: int = 240):
     """Spawn a gloo world of `world` ranks of this script running `jobs`
-    (in the test process); returns a function that waits for it and gives
-    each rank's results."""
+    (in the test process); returns a function that waits for it (up to
+    `wait_seconds` for each rank) and gives each rank's results."""
     tmp = pathlib.Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     spec = {"world": world, "store": str(tmp / "store"), "out": str(tmp),
@@ -263,7 +532,7 @@ def start_world(tmp, world: int, jobs):
         outs = []
         for p in procs:
             try:
-                outs.append(p.communicate(timeout=240))
+                outs.append(p.communicate(timeout=wait_seconds))
             except subprocess.TimeoutExpired:
                 for q in procs:
                     q.kill()
@@ -295,12 +564,14 @@ def main(spec_path: str, rank: int) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(spec["store"], spec["world"]),
                             rank=rank, world_size=spec["world"],
                             timeout=datetime.timedelta(seconds=spec.get("timeout", 300)))
-    results = {}
+    results = {"seconds": {}}
     for name, kwargs in spec["jobs"]:
+        t0 = time.perf_counter()
         try:
             results[name] = globals()[f"job_{name}"](**kwargs)
         except Exception:  # reported to the test, which fails on it
             results[name] = {"error": traceback.format_exc()}
+        results["seconds"][name] = time.perf_counter() - t0
     with open(os.path.join(spec["out"], f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     dist.destroy_process_group()
