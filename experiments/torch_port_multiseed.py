@@ -9,14 +9,16 @@ replica, and each banked replica then goes through the same pipeline
 (generation, downstream classifier, tests). One JSON line per run is
 appended to `--out`, with the JAX rows' keys plus `framework`
 ("cvaegan_tpu_torch"), `compute_dtype` and the card's name and power
-limit. A bf16 arm (`--dtype bfloat16`) is tagged `<mode>+bf16`, as the JAX
-rows are. `needed` comes from each fixture's train labels. Rows already in
+limit. A bf16 arm (`--dtype bfloat16`) is tagged `<mode>+bf16`, and an arm
+with a fresh downstream classifier (`--no-warm-start`) `<mode>+fresh_clf`,
+as the JAX rows are (`experiments/ours_multiseed.py`). `needed` comes from each fixture's train labels. Rows already in
 `--out` without an error are skipped, so an arm can be resumed.
 
 On the card (imports no JAX; the pipeline's fits replay CUDA graphs):
 
     python experiments/torch_port_multiseed.py --modes strict balanced
     python experiments/torch_port_multiseed.py --modes balanced --dtype bfloat16
+    python experiments/torch_port_multiseed.py --models sngan --modes strict --no-warm-start
 
 `--compare` reads this file and the JAX rows
 (`experiments/results/ours_multiseed.jsonl`) and prints, per (model, mode)
@@ -66,6 +68,11 @@ DTYPE_TAGS = {"float32": "", "bfloat16": "+bf16"}
 FRAMEWORK = "cvaegan_tpu_torch"
 
 
+def tagged_mode(mode: str, fresh_clf: bool = False, dtype: str = "float32") -> str:
+    """The arm's mode as the JAX study tags it: `strict+fresh_clf+bf16` etc."""
+    return mode + ("+fresh_clf" if fresh_clf else "") + DTYPE_TAGS[dtype]
+
+
 def card_name() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -93,7 +100,8 @@ def needed_rows(labels: np.ndarray, gen_mode: str) -> int:
 
 
 def run_one(model_name: str, seed: int, fixture, balanced: bool, mode_tag: str,
-            card: str, device: str, out_dir: str, model=None) -> dict:
+            card: str, device: str, out_dir: str, model=None,
+            warm_start: bool = True) -> dict:
     import cvaegan_tpu_torch
     from cvaegan_tpu_torch.core import config as config_lib
     from cvaegan_tpu_torch.pipelines.balance import run_balance_pipeline
@@ -104,7 +112,8 @@ def run_one(model_name: str, seed: int, fixture, balanced: bool, mode_tag: str,
     r = run_balance_pipeline(getattr(cvaegan_tpu_torch, cls_name), cls_name, ds,
                              out_dir=out_dir,
                              plot=False, seed=seed, generation_mode=gen_mode,
-                             balanced_mode=balanced, model=model, device=device)
+                             balanced_mode=balanced, warm_start=warm_start,
+                             model=model, device=device)
     n_train = len(ds.tr_labels)
     return {
         "framework": FRAMEWORK,
@@ -138,7 +147,7 @@ def failed(model_name, seed, mode_tag, card, e) -> dict:
 
 def run_arm(model_name: str, balanced: bool, mode_tag: str, seeds, serial_below: int,
             fixtures: pathlib.Path, out: pathlib.Path, done: set, card: str,
-            device: str, out_dir: str) -> None:
+            device: str, out_dir: str, warm_start: bool = True) -> None:
     import cvaegan_tpu_torch
     from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
 
@@ -147,7 +156,7 @@ def run_arm(model_name: str, balanced: bool, mode_tag: str, seeds, serial_below:
         print(f"=== {model_name} seed {s} {mode_tag} (serial) ===", flush=True)
         try:
             rec = run_one(model_name, s, fixtures / f"imb_s{s}.npz", balanced,
-                          mode_tag, card, device, out_dir)
+                          mode_tag, card, device, out_dir, warm_start=warm_start)
             rec["fit_mode"] = "serial"
         except Exception as e:  # recorded, and retried by a later run
             rec = failed(model_name, s, mode_tag, card, e)
@@ -168,7 +177,7 @@ def run_arm(model_name: str, balanced: bool, mode_tag: str, seeds, serial_below:
     for s, path, trainer in zip(banked, paths, trainers):
         try:
             rec = run_one(model_name, s, path, balanced, mode_tag, card, device,
-                          out_dir, model=trainer)
+                          out_dir, model=trainer, warm_start=warm_start)
             rec.update(fit_mode="bank", bank_fit_seconds=round(bank.fit_seconds, 2),
                        bank_steps_per_sec=round(bank.steps_per_sec))
         except Exception as e:
@@ -185,22 +194,28 @@ def read_rows(path: pathlib.Path, framework: str):
     return rows
 
 
+def paired_arms(port: list, ref: list):
+    """(model, mode, jax_mode, port rows, JAX rows) per (model, mode) arm of
+    the port's rows: the JAX rows of the same mode, or of the mode without
+    its `+bf16` tag where the JAX rows lack the tagged one."""
+    for model, mode in sorted({(r["model"], r["mode"]) for r in port}):
+        a = [r for r in port if (r["model"], r["mode"]) == (model, mode)]
+        jax_mode = mode
+        if not any((r["model"], r["mode"]) == (model, mode) for r in ref):
+            jax_mode = mode.removesuffix(DTYPE_TAGS["bfloat16"])
+        yield model, mode, jax_mode, a, [r for r in ref
+                                         if (r["model"], r["mode"]) == (model, jax_mode)]
+
+
 def compare(port_path: pathlib.Path, jax_path: pathlib.Path) -> list:
     """Per (model, mode) arm present in both files: the seeds, medians of
     yield (generated / needed) and of macro-F1 on both sides, and two-sided
     Mann-Whitney U p-values. Prints one JSON line per arm."""
     from scipy.stats import mannwhitneyu
 
-    port = read_rows(port_path, FRAMEWORK)
-    ref = read_rows(jax_path, "cvaegan_tpu")
-    arms = sorted({(r["model"], r["mode"]) for r in port})
     report = []
-    for model, mode in arms:
-        a = [r for r in port if (r["model"], r["mode"]) == (model, mode)]
-        jax_mode = mode
-        if not any((r["model"], r["mode"]) == (model, mode) for r in ref):
-            jax_mode = mode.removesuffix(DTYPE_TAGS["bfloat16"])
-        b = [r for r in ref if (r["model"], r["mode"]) == (model, jax_mode)]
+    for model, mode, jax_mode, a, b in paired_arms(read_rows(port_path, FRAMEWORK),
+                                                   read_rows(jax_path, "cvaegan_tpu")):
         line = {"model": model, "mode": mode, "jax_mode": jax_mode, "port_seeds": len(a),
                 "jax_seeds": len(b)}
         for key, get in (("yield", lambda r: r["generated"] / r["needed"]),
@@ -229,6 +244,9 @@ def main() -> int:
     p.add_argument("--dtype", default="float32", choices=list(DTYPE_TAGS),
                    help="compute policy of the GAN fits; the downstream "
                         "classifier stays float32")
+    p.add_argument("--no-warm-start", action="store_true",
+                   help="train a fresh downstream classifier instead of warm-starting "
+                        "it from the GAN's companion; tags the mode +fresh_clf")
     p.add_argument("--fixtures", default=str(HERE / "fixtures"))
     p.add_argument("--out", default=str(HERE / "results" / "torch_port_multiseed.jsonl"))
     p.add_argument("--jax", default=str(HERE / "results" / "ours_multiseed.jsonl"),
@@ -270,9 +288,10 @@ def main() -> int:
                 balanced = mode == "balanced"
                 if balanced and not MODELS[model_name][1]:
                     continue
-                run_arm(model_name, balanced, mode + DTYPE_TAGS[args.dtype], args.seeds,
+                run_arm(model_name, balanced,
+                        tagged_mode(mode, args.no_warm_start, args.dtype), args.seeds,
                         args.serial_below, pathlib.Path(args.fixtures), out, done, card,
-                        args.device, out_dir)
+                        args.device, out_dir, warm_start=not args.no_warm_start)
     return 0
 
 

@@ -179,6 +179,13 @@ def worlds(tmp_path_factory, blob_dataset):
         mp.undo()
 
 
+@pytest.mark.parametrize("n", [4, 3])
+def test_ranks_issue_the_same_collectives(worlds, n):
+    """In every job, every rank of each process group issued the same
+    sequence of collectives (op, group, dtypes and shapes)."""
+    worker.assert_in_step(worlds[n])
+
+
 # ------------------------------------------------------------------ mesh
 def test_shard_leading_noop_without_mesh():
     x = torch.ones(8, 4)

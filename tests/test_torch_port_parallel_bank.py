@@ -40,12 +40,16 @@ def banks(tmp_path_factory):
     plain = SeedBank(CVAEGAN, seeds=SEEDS, settings=worker.settings(BATCH, EPOCHS),
                      device="cpu")
     trainers = plain.fit([(x, y)] * len(SEEDS))
-    return job(wait(), "seed_bank"), trainers
+    return wait(), trainers
+
+
+def test_ranks_issue_the_same_collectives(banks):
+    worker.assert_in_step(banks[0])
 
 
 @pytest.mark.parametrize("k", range(len(SEEDS)))
 def test_meshed_bank_replica_matches_unmeshed(banks, k):
-    out, trainers = banks
+    out, trainers = job(banks[0], "seed_bank"), banks[1]
     assert [res["held"] for res in out] == [SEEDS[:2], SEEDS[2:]]
     plain = trainers[k]
     for res in out:
@@ -58,6 +62,6 @@ def test_meshed_bank_replica_matches_unmeshed(banks, k):
 
 
 def test_meshed_bank_refuses_seeds_the_axis_does_not_divide(banks):
-    out, _ = banks
+    out = job(banks[0], "seed_bank")
     for res in out:
         assert res["uneven"] == "3 seeds do not divide the mesh's 'data' axis (2)"

@@ -20,7 +20,7 @@ from jax.sharding import Mesh
 from cvaegan_tpu.kernels import ring_attention as jring
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
-from torch_port_parallel_worker import job, start_world  # noqa: E402
+from torch_port_parallel_worker import assert_in_step, job, start_world  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 #: name -> [bh, seq, d]: `test_ring_attention_matches_reference`'s and
@@ -48,15 +48,20 @@ def rings(tmp_path_factory):
             out, ent = jring.ring_attention(q, k, v, mesh=mesh, axis="data",
                                             with_entropy=True)
             jax_out[n, name] = (np.asarray(out), np.asarray(ent))
-    return {n: job(waits[n](), "ring") for n in RINGS}, jax_out
+    return {n: waits[n]() for n in RINGS}, jax_out
+
+
+@pytest.mark.parametrize("n", RINGS)
+def test_ranks_issue_the_same_collectives(rings, n):
+    assert_in_step(rings[0][n])
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
 @pytest.mark.parametrize("n", RINGS)
 def test_ring_attention_matches_jax_and_plain(rings, n, name):
-    results, jax_out = rings
+    worlds, jax_out = rings
     jax_att, jax_ent = jax_out[n, name]
-    for res in results[n]:  # every rank returns the global result
+    for res in job(worlds[n], "ring"):  # every rank returns the global result
         got = res[name]
         np.testing.assert_allclose(got["out"], jax_att, **TOL)
         np.testing.assert_allclose(got["ent"], jax_ent, **TOL)
@@ -68,7 +73,6 @@ def test_ring_attention_matches_jax_and_plain(rings, n, name):
 
 @pytest.mark.parametrize("n", RINGS)
 def test_ring_attention_uneven_seq_raises(rings, n):
-    results, _ = rings
-    for res in results[n]:
+    for res in job(rings[0][n], "ring"):
         for name in SHAPES:
             assert "must divide seq" in res[name]["uneven"]

@@ -172,6 +172,13 @@ def tp(tmp_path_factory, blob_dataset):
         mp.undo()
 
 
+@pytest.mark.parametrize("world", [8, 2])
+def test_ranks_issue_the_same_collectives(tp, world):
+    """In every job, every rank of each process group issued the same
+    sequence of collectives (op, group, dtypes and shapes)."""
+    worker.assert_in_step(tp[world])
+
+
 # ----------------------------------------------------------------- specs
 def _jax_leaves(ns):
     return {"params": ns.params, **ns.mutables}

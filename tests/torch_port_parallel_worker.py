@@ -7,21 +7,46 @@
 The spec (a pickled dict) gives the world size, a FileStore path (so that
 test workers never race for a port), an output directory and the jobs:
 each `(name, kwargs)` runs the function `job_<name>` of this module on
-every rank, in order. A job's result, or the error it raised, goes into
-`<out>/rank<r>.pkl` under its name. Imports nothing of JAX: the JAX side
-runs in the test process, and arrays travel as numpy.
+every rank, in order. Imports nothing of JAX: the JAX side runs in the test
+process, and arrays travel as numpy.
+
+The world is guarded so that one failure cannot run on into later jobs:
+
+  * every rank records the collectives it issues through
+    `torch.distributed` in a job (`CollectiveLog`: per process group, the
+    op, the group's ranks, each tensor's dtype and shape, the reduce op
+    and root), as a running sha256 and a count;
+  * after each job the ranks agree, on a group of their own, that the job
+    succeeded everywhere and that every rank of each group issued the same
+    sequence (`parted` names the first collective where two ranks differ:
+    gloo pairs collectives by order alone, so a same-sized pair out of
+    step would otherwise hand over wrong data without an error);
+  * a rank whose job raised, or a world whose sequences parted, writes the
+    error to `<out>/fail-rank<r>.pkl` and exits; every other rank's
+    watchdog sees the file and exits within a second, so no rank goes on to
+    the next job's collectives, and no peer waits out gloo's timeout;
+  * each rank writes its results to `<out>/rank<r>.pkl` after every agreed
+    job, and its output to `<out>/rank<r>.log` (never a pipe the test
+    process might not read in time).
+
+`start_world(...)()` gives each rank's results; a job that failed, or that
+came after a failure, holds `{"error": <the first failure's text>}`, which
+`job` turns into the test's failure.
 """
 
 from __future__ import annotations
 
 import copy
 import datetime
+import functools
 import hashlib
+import inspect
 import os
 import pathlib
 import pickle
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -511,41 +536,249 @@ def job_tp_capture_key(x, y, batch_size, ckpt):
     return out
 
 
+def job_fail_between(fail_rank):
+    """Two all-reduces; rank `fail_rank` raises between them (the guard's
+    own test)."""
+    dist.all_reduce(torch.ones(4))
+    if dist.get_rank() == fail_rank:
+        raise RuntimeError(f"planted failure on rank {fail_rank}")
+    dist.all_reduce(torch.ones(4))
+    return {"done": True}
+
+
+def job_out_of_step(odd_rank):
+    """An all-reduce of 6 floats that rank `odd_rank` issues as [3, 2] and
+    the others as [2, 3]: gloo pairs them without an error (the guard's
+    own test)."""
+    shape = (3, 2) if dist.get_rank() == odd_rank else (2, 3)
+    dist.all_reduce(torch.ones(4))
+    dist.all_reduce(torch.ones(shape))
+    return {"done": True}
+
+
+def job_in_step():
+    dist.all_reduce(torch.ones(4))
+    return {"done": True}
+
+
+# ------------------------------------------------------------ the guard
+#: the `torch.distributed` functions `CollectiveLog` records; the port calls
+#: them as `torch.distributed.<name>` (`dist.isend`/`irecv` travel inside
+#: `batch_isend_irecv`, whose `P2POp` checks for the originals)
+RECORDED = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter_tensor",
+            "broadcast", "barrier", "reduce", "gather", "scatter", "all_to_all_single",
+            "all_gather_object", "broadcast_object_list", "batch_isend_irecv")
+
+
+def _describe(value) -> str:
+    """A collective's argument as the sequence records it: a tensor by
+    dtype and shape, a list by its items, a reduce op or a root as text;
+    objects by type only (their pickles may differ between ranks)."""
+    if isinstance(value, torch.Tensor):
+        return f"{str(value.dtype).removeprefix('torch.')}{list(value.shape)}"
+    if isinstance(value, dist.P2POp):
+        return f"{value.op.__name__}:{_describe(value.tensor)}"
+    if isinstance(value, (list, tuple)):
+        return "[" + ",".join(_describe(v) for v in value) + "]"
+    if isinstance(value, (int, str)) or value is None or type(value).__name__ in (
+            "ReduceOp", "RedOpType"):
+        return str(value)
+    return type(value).__name__
+
+
+class CollectiveLog:
+    """Wraps `torch.distributed`'s collectives while installed: per process
+    group (by its global ranks), the sequence of collectives this rank
+    issued since `reset`, as a running sha256 and a count, and the entries
+    themselves, to name where two ranks part."""
+
+    #: arguments left out: the group (the key), and outputs, whose shapes
+    #: follow the inputs'
+    SKIP = {"group", "async_op", "tensor_list", "object_list", "output_tensor", "output",
+            "gather_list", "scatter_list", "timeout", "device_ids", "device"}
+
+    def __init__(self):
+        self.originals = {name: getattr(dist, name) for name in RECORDED}
+        self.reset()
+
+    def reset(self) -> None:
+        self.groups: dict = {}
+
+    def install(self) -> None:
+        for name, fn in self.originals.items():
+            setattr(dist, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def recorded(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs).arguments
+            group = bound.get("group")
+            if name == "batch_isend_irecv":
+                group = bound["p2p_op_list"][0].group
+                # the peers are rank-relative: record the ops and tensors only
+                entry = name + "(" + _describe(bound["p2p_op_list"]) + ")"
+            else:
+                entry = name + "(" + ",".join(f"{k}={_describe(v)}" for k, v in bound.items()
+                                              if k not in self.SKIP) + ")"
+            self._record(group, entry)
+            return fn(*args, **kwargs)
+
+        return recorded
+
+    def _record(self, group, entry: str) -> None:
+        ranks = tuple(dist.get_process_group_ranks(group) if group is not None
+                      else range(dist.get_world_size()))
+        seq = self.groups.get(ranks)
+        if seq is None:
+            seq = self.groups[ranks] = {"sha": hashlib.sha256(), "entries": []}
+        seq["sha"].update(entry.encode() + b"\n")
+        seq["entries"].append(entry)
+
+    def summary(self) -> dict:
+        """{group ranks: (count, sha256)} of the job so far."""
+        return {ranks: (len(seq["entries"]), seq["sha"].hexdigest())
+                for ranks, seq in self.groups.items()}
+
+    def sequences(self) -> dict:
+        """{group ranks: [entry, ...]}: the collectives themselves."""
+        return {ranks: seq["entries"] for ranks, seq in self.groups.items()}
+
+
+def parted(summaries, sequences=None):
+    """The first group whose ranks issued different sequences, described,
+    or None. `summaries[r]` is rank r's `CollectiveLog.summary()`; with
+    `sequences` (each rank's `CollectiveLog.sequences()`) the description
+    names the first collective at which the ranks differ."""
+    groups = sorted({g for s in summaries for g in s})
+    for ranks in groups:
+        seen = {r: summaries[r].get(ranks, (0, hashlib.sha256().hexdigest())) for r in ranks}
+        if len(set(seen.values())) == 1:
+            continue
+        text = f"group {list(ranks)}: " + ", ".join(
+            f"rank {r} issued {n} collectives (sha256 {h[:12]})" for r, (n, h) in seen.items())
+        if sequences is not None:
+            seqs = {r: sequences[r].get(ranks, []) for r in ranks}
+            at = next(i for i in range(max(map(len, seqs.values())) + 1)
+                      if len({tuple(s[i:i + 1]) for s in seqs.values()}) > 1)
+            text += f"; they part at collective #{at}: " + "; ".join(
+                f"rank {r}: {s[at] if at < len(s) else '(none)'}" for r, s in seqs.items())
+        return text
+    return None
+
+
+def _write(path: pathlib.Path, obj) -> None:
+    """Pickle `obj` to `path` atomically (a reader never sees half a file)."""
+    tmp = path.with_name(path.name + f".{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _watch(out: pathlib.Path, rank: int) -> None:
+    """Exit as soon as another rank has written a failure: this rank's peers
+    are gone or about to go, and its next collective would wait out gloo's
+    timeout."""
+    while True:
+        if any(p.name != f"fail-rank{rank}.pkl" for p in out.glob("fail-rank*.pkl")):
+            (out / f"stopped-rank{rank}").write_text(repr(time.time()))
+            os._exit(3)
+        time.sleep(0.2)
+
+
+def _fail(out: pathlib.Path, rank: int, name: str, error: str, results: dict) -> None:
+    results[name] = {"error": error}
+    _write(out / f"rank{rank}.pkl", results)
+    _write(out / f"fail-rank{rank}.pkl", {"time": time.time(), "rank": rank, "job": name,
+                                          "error": error})
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(1)
+
+
 # ------------------------------------------------------------ the world
-def start_world(tmp, world: int, jobs, wait_seconds: int = 240):
+class World(list):
+    """Each rank's results, in rank order, and how the world ended:
+    `first_error` (None when every job passed everywhere), and
+    `seconds_after_failure`, from the first failure to the last rank's end
+    (a rank the test process had to kill ends when it was killed)."""
+
+    first_error = None
+    seconds_after_failure = None
+
+
+def start_world(tmp, world: int, jobs, wait_seconds: int = 900, timeout: int = 300):
     """Spawn a gloo world of `world` ranks of this script running `jobs`
-    (in the test process); returns a function that waits for it (up to
-    `wait_seconds` for each rank) and gives each rank's results."""
+    (in the test process); returns a function that waits for it, at most
+    `wait_seconds` from the spawn, and gives a `World`. `timeout` is gloo's
+    for one collective (an oversubscribed box may keep a peer away for
+    tens of seconds; a failed job ends the world at once regardless)."""
     tmp = pathlib.Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     spec = {"world": world, "store": str(tmp / "store"), "out": str(tmp),
-            "jobs": jobs, "timeout": 120}
+            "jobs": jobs, "timeout": timeout}
     with open(tmp / "spec.pkl", "wb") as f:
         pickle.dump(spec, f)
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    started = time.monotonic()
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                str(tmp / "spec.pkl"), str(r)],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(world)]
+                              env=env, stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
 
-    def wait():
-        outs = []
+    def wait() -> World:
+        hung = failed_at = None
+        while any(p.poll() is None for p in procs):
+            if failed_at is None and (any(p.returncode not in (None, 0) for p in procs)
+                                      or any(tmp.glob("fail-rank*.pkl"))):
+                failed_at = time.monotonic()
+            if failed_at is not None and time.monotonic() - failed_at > 10:
+                break  # every rank's watchdog had time to see the failure
+            if time.monotonic() - started > wait_seconds:
+                hung = f"the world did not end within {wait_seconds} s of its spawn"
+                break
+            time.sleep(0.1)
+        killed = [p.poll() is None for p in procs]
         for p in procs:
-            try:
-                outs.append(p.communicate(timeout=wait_seconds))
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                raise
-        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
-            assert p.returncode == 0, f"rank {r}: {err[-3000:]}"
-        results = []
-        for r in range(world):
-            with open(tmp / f"rank{r}.pkl", "rb") as f:
-                results.append(pickle.load(f))
-        return results
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+        return _collect(tmp, world, jobs, procs, hung, time.time() if any(killed) else None)
 
     return wait
+
+
+def _collect(tmp: pathlib.Path, world: int, jobs, procs, hung, killed_at) -> World:
+    """Each rank's results; every job from the first failure on holds that
+    failure's text."""
+    results = World()
+    for r in range(world):
+        path = tmp / f"rank{r}.pkl"
+        results.append(pickle.loads(path.read_bytes()) if path.exists() else {"seconds": {}})
+    failures = sorted((pickle.loads(p.read_bytes()) for p in tmp.glob("fail-rank*.pkl")),
+                      key=lambda f: f["time"])
+    if failures:
+        first = failures[0]
+        results.first_error = (f"job {first['job']!r} failed first, on rank {first['rank']}:"
+                               f"\n{first['error']}")
+        ends = [f["time"] for f in failures]
+        ends += [float(p.read_text()) for p in tmp.glob("stopped-rank*")]
+        results.seconds_after_failure = max(ends + [killed_at or 0.0]) - first["time"]
+    elif hung or any(p.returncode for p in procs):
+        bad = next((r for r, p in enumerate(procs) if p.returncode), 0)
+        log = (tmp / f"rank{bad}.log").read_text(errors="replace")[-3000:]
+        results.first_error = hung or (f"rank {bad} exited with code {procs[bad].returncode}"
+                                       f" and wrote no failure:\n{log}")
+    if results.first_error is not None:
+        for res in results:
+            for name, _ in jobs:
+                if name not in res or "error" in res[name]:
+                    res[name] = {"error": results.first_error}
+    return results
 
 
 def job(results, name):
@@ -556,24 +789,49 @@ def job(results, name):
     return out
 
 
+def assert_in_step(results) -> None:
+    """Every rank of each group issued the same sequence of collectives in
+    every job (the digests of `CollectiveLog`), and the world recorded some."""
+    assert results.first_error is None, results.first_error
+    logs = results[0]["collectives"]
+    assert any(logs.values()), f"no job recorded a collective: {list(logs)}"
+    for name in logs:
+        summaries = [res["collectives"][name] for res in results]
+        assert parted(summaries) is None, f"job {name!r}: {parted(summaries)}"
+
+
 # ------------------------------------------------------------------- main
 def main(spec_path: str, rank: int) -> None:
     torch.set_num_threads(1)
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
+    out = pathlib.Path(spec["out"])
+    timeout = datetime.timedelta(seconds=spec["timeout"])
     dist.init_process_group("gloo", store=dist.FileStore(spec["store"], spec["world"]),
-                            rank=rank, world_size=spec["world"],
-                            timeout=datetime.timedelta(seconds=spec.get("timeout", 300)))
-    results = {"seconds": {}}
+                            rank=rank, world_size=spec["world"], timeout=timeout)
+    guard = dist.new_group(backend="gloo", timeout=timeout)  # the agreements' own group
+    threading.Thread(target=_watch, args=(out, rank), daemon=True).start()
+    log = CollectiveLog()
+    gather = log.originals["all_gather_object"]
+    log.install()
+    results = {"seconds": {}, "collectives": {}}
     for name, kwargs in spec["jobs"]:
         t0 = time.perf_counter()
+        log.reset()
         try:
             results[name] = globals()[f"job_{name}"](**kwargs)
-        except Exception:  # reported to the test, which fails on it
-            results[name] = {"error": traceback.format_exc()}
+        except Exception:
+            _fail(out, rank, name, f"rank {rank}: {traceback.format_exc()}", results)
         results["seconds"][name] = time.perf_counter() - t0
-    with open(os.path.join(spec["out"], f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(results, f)
+        results["collectives"][name] = log.summary()
+        summaries = [None] * spec["world"]
+        gather(summaries, log.summary(), group=guard)
+        if parted(summaries) is not None:  # every rank finds the same
+            sequences = [None] * spec["world"]
+            gather(sequences, log.sequences(), group=guard)
+            _fail(out, rank, name, "the ranks' collectives parted: "
+                  + parted(summaries, sequences), results)
+        _write(out / f"rank{rank}.pkl", results)
     dist.destroy_process_group()
 
 
