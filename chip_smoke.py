@@ -108,7 +108,10 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
      the classifier's blocks and steps), CUDA-event times of a replayed
      epoch and a classifier block, peak device memory; a strict streamed
      fit whose replay on the refilled second window equals an eager epoch
-     there, bitwise, with each window's upload time; the blob stand-in
+     there, bitwise, with each window's upload time, and the same fit on
+     a 1-rank NCCL group of its own under `use_mesh`: bitwise the plain
+     fit, its replay on the refilled window bitwise an eager meshed epoch
+     there (the group destroyed after); the blob stand-in
      streamed in 256-row windows, the second lacking class 2, strict and
      balanced: captured = eager bitwise, Adam counts in closed form; the
      classifier's captured 128-step block against its eager loop,
@@ -139,7 +142,9 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
      (captured = eager bitwise), and whether cuBLAS takes a
      reduced-precision bf16 reduction at the fit's GEMM shapes (the flag
      `allow_bf16_reduced_precision_reduction` flipped: reported, not
-     gated). No kernel launches on those fits;
+     gated); then each of the other ten trainers' one-epoch strict fit
+     under the policy, captured against eager, bitwise, its state float32
+     (`bf16_zoo`). No kernel launches on those fits;
  13. mesh: the multi-device layer (`cvaegan_tpu_torch/parallel/`) on a
      1-rank NCCL process group (`distributed.initialize` at a loopback
      address, `global_mesh()`: {'data': 1, 'model': 1}): from one state
@@ -149,7 +154,9 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
      run in the warm-up, before capture), held to each other at
      MESH_RTOL, MESH_ATOL, with each replay's device time by CUDA events,
      the collectives one meshed epoch issues, and the NCCL kernels per
-     replay by `torch.profiler`; `SeedBank(CVAEGAN, seeds=range(4),
+     replay by `torch.profiler`; the same epoch under the bf16 policy,
+     captured under the mesh, bitwise the plain captured bf16 epoch and
+     the eager meshed one; `SeedBank(CVAEGAN, seeds=range(4),
      mesh=mesh)` for 2 epochs against the same bank without a mesh, per
      replica; `ring_attention` on the 1-rank ring at T1 [128, 1024, 64]
      float32, with and without entropy (its KV rotation a NCCL send to its
@@ -157,7 +164,8 @@ TMG-GAN at widths from `hidden_sizes`) and `SeedBank` of all of them:
      and timed beside them; then `destroy_process_group()`. A capture of
      the collectives that fails raises: no meshed fit falls back to eager.
 
-Each phase prints one JSON line; then the `kernels` line, the card's name
+Each phase prints one JSON line, stamped with the seconds since the
+script started (`elapsed_seconds`); then the `kernels` line, the card's name
 and power limit as `nvidia-smi` gives them, and as the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero,
 as does a run without CUDA or without the repository beside the script.
@@ -297,7 +305,14 @@ JAX_STRICT_RECON_LAST50 = (0.16611650466918945, 0.1633944422006607,
 REFERENCE_SIGMAS = 5.0
 
 
+#: the script's start on the host clock; each phase line carries the
+#: seconds since then (`elapsed_seconds`), so its share of the run reads off
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_seconds": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -431,13 +446,16 @@ def samples_per_s(torch, fns, rows: int, iters: int = 20, reps: int = 6):
 
 def breakdown(torch, fn, call_ms: float, calls: int = 10, top: int = 6):
     """Device time of one call of `fn` from a `torch.profiler` trace,
-    beside `call_ms`, the call's unprofiled time on the host clock."""
+    beside `call_ms`, the call's unprofiled time on the host clock. Only
+    the device is traced: every number here is read off its kernels, and
+    tracing the host's ops too takes three times as long on an eager
+    epoch, for the same kernels and device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -1495,6 +1513,52 @@ def replay_vs_eager(torch, model):
     return all(torch.equal(a, b) for a, b in zip(replayed, static)), diff, new_capture
 
 
+def streamed_mesh_leg(torch, tp, tconfig, root, plain, counter, patterns):
+    """The strict streamed fit of `plain` (3a) again on a 1-rank NCCL group
+    under its global mesh, from the same seed: its state after the last
+    window bitwise the plain fit's, one capture per present-class pattern,
+    and its replay on the refilled window against an eager epoch there,
+    both under the mesh, bitwise. The group is destroyed before the next
+    step. Returns the report."""
+    import torch.distributed as dist
+
+    from cvaegan_tpu_torch.parallel import distributed
+    from cvaegan_tpu_torch.parallel import mesh as mesh_lib
+
+    distributed.initialize(coordinator_address=f"127.0.0.1:{free_port()}",
+                           num_processes=1, process_id=0)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"the streamed leg's group is {dist.get_backend()} of {dist.get_world_size()}")
+        mesh = distributed.global_mesh()
+        meshed = tp.CVAEGAN(seed=0, device="cuda", settings=train_settings(tconfig, 1))
+        meshed.verbose = False
+        counter.reset()
+        mesh_lib.COLLECTIVES = 0
+        with mesh_lib.use_mesh(mesh):
+            meshed.fit_streamed(root / "x_train.csv", root / "y_train.csv",
+                                window_rows=STREAM_WINDOW,
+                                epochs_per_window=STREAM_STRICT_EPOCHS)
+            torch.cuda.synchronize()
+            captures, collectives = counter.epochs, mesh_lib.COLLECTIVES
+            err, _, same = compare_fits(torch, plain, meshed)
+            check(same, f"the meshed streamed fit is not the plain one bitwise ({err})")
+            check(captures == patterns and meshed._graph[0][1] is mesh and collectives > 0,
+                  f"the meshed streamed fit: {captures} captures for {patterns} patterns, "
+                  f"{collectives} collectives")
+            with mesh_lib.data_parallel(meshed.gan_cfg.batch_size):
+                bitwise, diff, new_capture = replay_vs_eager(torch, meshed)
+        check(not new_capture, "the meshed replay on the refilled window captured anew")
+        check(bitwise, f"meshed: the replay on the refilled window differs from an eager "
+              f"epoch there (max abs {diff})")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the streamed leg's process group outlived it")
+    return {"backend": "nccl", "world_size": 1, "fit_eq_plain_bitwise": same,
+            "captured_epochs": captures, "collectives_in_fit": collectives,
+            "replay_equals_eager_bitwise": bitwise, "max_abs_diff": diff}
+
+
 def streamed_phase(torch, tp, tconfig, fused_mlp, ba, counter):
     """The `streamed` phase: the out-of-core path on the card. Returns (the
     report, the kernels' launches over it)."""
@@ -1644,6 +1708,8 @@ def streamed_phase(torch, tp, tconfig, fused_mlp, ba, counter):
     strict.fit_streamed(root / "x_train.csv", root / "y_train.csv", window_rows=STREAM_WINDOW,
                         epochs_per_window=STREAM_STRICT_EPOCHS)
     strict_captures = counter.epochs
+    meshed_window = streamed_mesh_leg(torch, tp, tconfig, root, strict, counter,
+                                      len(set(patterns)))
     bitwise, diff, new_capture = replay_vs_eager(torch, strict)
     check(strict_captures == len(set(patterns)) and not new_capture,
           f"strict streamed fit: {strict_captures} captures, a new one for the last window: "
@@ -1655,7 +1721,7 @@ def streamed_phase(torch, tp, tconfig, fused_mlp, ba, counter):
         "captured_epochs": strict_captures,
         "replay_reuses_first_window_capture": len(set(patterns)) == 1,
         "replay_equals_eager_bitwise": bitwise, "max_abs_diff": diff,
-        "window_upload_ms": uploads}
+        "window_upload_ms": uploads, "under_1_rank_nccl_mesh": meshed_window}
 
     # 3b. the blob stand-in, its second window lacking class 2 ---------------
     ds = standin_dataset(TabularDataset, minmax_scale)
@@ -1819,6 +1885,10 @@ def streamed_phase(torch, tp, tconfig, fused_mlp, ba, counter):
 # few 2^-9 of a value (2^-5 on the output, 2^-6 on the entropies).
 BF16_EPOCHS = 3
 BF16_BANK_K = 4
+# The other ten trainers (FAMILY) under the policy: each one's one-epoch
+# strict fit captured against its eager fit, bitwise (timings of their
+# replays beside float32: `experiments/torch_port_bf16_zoo.py`).
+BF16_ZOO_EPOCHS = 1
 BF16_BLOCK_RTOL = BF16_BLOCK_ATOL = 2.0 ** -5
 BF16_ENT_TOL = 2.0 ** -6
 
@@ -1847,6 +1917,54 @@ def attention_bound_bf16(part, bh, seq, d, entropy):
             "bytes_bound_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bound_ms_tf32_pv": max(tf32_pv_ms, bytes_ms)}
+
+
+def bf16_zoo(torch, tp, tconfig, ds, counter):
+    """The bf16 captures of the other ten trainers: per trainer of FAMILY a
+    BF16_ZOO_EPOCHS strict fit under the policy, captured (one replay per
+    epoch) against the eager fit, bitwise; the capture keyed by the
+    policy; the state float32. Returns the report."""
+    import tempfile
+
+    report = {}
+    outs = tempfile.TemporaryDirectory()  # TMG-GAN's chunk-end scatters
+    for name in FAMILY:
+        t0 = time.perf_counter()
+        cls = getattr(tp, name)
+
+        def fitted(eager, cls=cls):
+            settings = train_settings(tconfig, BF16_ZOO_EPOCHS, "bfloat16")
+            settings.paths = tconfig.Paths(root=pathlib.Path(outs.name))
+            m = cls(seed=0, device="cuda", settings=settings)
+            m.verbose = False
+            m.fit(ds, eager=eager)
+            torch.cuda.synchronize()
+            return m
+
+        counter.reset()
+        captured = fitted(False)
+        captured_calls = (counter.replays, counter.epochs)
+        counter.reset()
+        eager = fitted(True)
+        eager_calls = (counter.replays, counter.epochs)
+        check(captured_calls == (BF16_ZOO_EPOCHS, 1) and eager_calls == (0, 1),
+              f"bf16 {name}: (replays, epoch calls) captured {captured_calls}, "
+              f"eager {eager_calls}")
+        check(captured._graph is not None and captured._graph[0][0] == "bfloat16",
+              f"bf16 {name}: no capture keyed by the bf16 policy")
+        err, ratio, bitwise = compare_fits(torch, captured, eager)
+        check(bitwise, f"bf16 {name}: captured and eager epochs differ ({err})")
+        dtypes = sorted({str(t.dtype) for t in state_tensors(captured)})
+        check(set(dtypes) <= {"torch.float32", "torch.int32"},
+              f"bf16 {name}: state dtypes {dtypes}")
+        check(all(np.isfinite(v).all() for v in captured.loss_history.values()),
+              f"bf16 {name}: non-finite losses")
+        report[name] = {"epochs": BF16_ZOO_EPOCHS, "captured_eq_eager_bitwise": bitwise,
+                        "steps_per_epoch": captured._steps_per_epoch(),
+                        "epoch0": {k: float(v[0]) for k, v in captured.loss_history.items()},
+                        "seconds": time.perf_counter() - t0}
+    outs.cleanup()
+    return report
 
 
 def bf16_attention_vs_plain(torch, ba, device):
@@ -2053,6 +2171,7 @@ def bf16_phase(torch, F, tp, tconfig, ds, make_ds, ba, fused_mlp, counter, part,
     bank_bitwise = all(compare_fits(torch, a, b)[2]
                        for a, b in zip(banks[0].trainers, banks[1].trainers))
     check(bank_bitwise, "bf16 bank: captured and eager epochs differ")
+    zoo = bf16_zoo(torch, tp, tconfig, ds, counter)
     torch.cuda.synchronize()
     training_launches = all_counts(fused_mlp, ba)
     check(training_launches == (0, 0, 0, 0, 0),
@@ -2074,7 +2193,7 @@ def bf16_phase(torch, F, tp, tconfig, ds, make_ds, ba, fused_mlp, counter, part,
         "bf16_reduced_precision_reduction_probe": split_k,
         "classifier_dtypes": sorted(clf_dtypes),
         "bank": {"k": BF16_BANK_K, "epochs": 2, "captured_eq_eager_bitwise": bank_bitwise},
-        "training_launches": training_launches}
+        "zoo": zoo, "training_launches": training_launches}
     return report, err, stats, timing, path_launches
 
 
@@ -2086,7 +2205,7 @@ def nccl_kernels(torch, fn, calls: int = 3):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -2125,14 +2244,14 @@ def mesh_phase(torch, tp, tconfig, ds, ba, fused_mlp, part, card):
                   str(v) for v in torch.cuda.nccl.version())}
     try:
         # one captured strict epoch from one state, without and with the mesh
-        def fitted(use):
-            m = tp.CVAEGAN(seed=0, device="cuda", settings=train_settings(tconfig, 1))
+        def fitted(use, dtype="float32", eager=False):
+            m = tp.CVAEGAN(seed=0, device="cuda", settings=train_settings(tconfig, 1, dtype))
             m.verbose = False
             with mesh_lib.use_mesh(mesh if use else None):
                 m._prepare(ds)
                 draw_moments(torch, m, 0)
                 mesh_lib.COLLECTIVES = 0
-                m._fit_prepared(1)
+                m._fit_prepared(1, eager=eager)
             torch.cuda.synchronize()
             return m, mesh_lib.COLLECTIVES
 
@@ -2171,6 +2290,7 @@ def mesh_phase(torch, tp, tconfig, ds, ba, fused_mlp, part, card):
             "nccl_kernels_per_replay": nccl_per_replay,
             "device_ops_per_replay": {"plain": plain_ops, "mesh": ops_per_replay}}
 
+        report["bf16_epoch"] = bf16_mesh_leg(torch, fitted, mesh)
         report["model"], fast_launches = model_leg(torch, tp, tconfig, ds, fused_mlp, mesh,
                                                    plain, meshed, plain_ops)
 
@@ -2235,6 +2355,32 @@ def mesh_phase(torch, tp, tconfig, ds, ba, fused_mlp, part, card):
     report["destroyed"] = not dist.is_initialized()
     check(report["destroyed"], "the process group outlived the phase")
     return report, fast_launches
+
+
+def bf16_mesh_leg(torch, fitted, mesh):
+    """The bf16 leg of the mesh phase: one strict CVAE-GAN epoch under the
+    bf16 policy on the 1-rank NCCL group, captured, against the plain
+    captured bf16 epoch from the same state (bitwise, as the float32 one),
+    and against the same meshed epoch run eagerly (bitwise). `fitted(use,
+    dtype, eager)` is the phase's: (trainer, collectives of its fit)."""
+    plain, _ = fitted(False, "bfloat16")
+    meshed, collectives = fitted(True, "bfloat16")
+    eager, eager_collectives = fitted(True, "bfloat16", eager=True)
+    check(meshed._graph is not None and meshed._graph[0][:2] == ("bfloat16", mesh),
+          "the bf16 meshed fit did not replay a capture keyed by bf16 and its mesh")
+    check(eager._graph is None, "the eager bf16 meshed fit replayed a capture")
+    check(collectives > 0 and eager_collectives > 0,
+          f"the bf16 meshed fits issued {collectives} and {eager_collectives} collectives")
+    err, _, bitwise = compare_fits(torch, plain, meshed)
+    check(bitwise, f"the bf16 meshed epoch is not the plain bf16 epoch bitwise ({err})")
+    eager_err, _, eager_bitwise = compare_fits(torch, meshed, eager)
+    check(eager_bitwise, f"the captured bf16 meshed epoch differs from eager ({eager_err})")
+    dtypes = sorted({str(t.dtype) for t in state_tensors(meshed)})
+    check(set(dtypes) <= {"torch.float32", "torch.int32"}, f"bf16 meshed state {dtypes}")
+    return {"meshed_eq_plain_bitwise": bitwise, "captured_eq_eager_bitwise": eager_bitwise,
+            "collectives_in_fit_with_warm_up_and_capture": collectives,
+            "collectives_in_eager_fit": eager_collectives, "state_dtypes": dtypes,
+            "epoch0": {k: float(v[0]) for k, v in meshed.loss_history.items()}}
 
 
 def model_leg(torch, tp, tconfig, ds, fused_mlp, mesh, plain, meshed, plain_ops):

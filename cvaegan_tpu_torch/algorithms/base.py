@@ -218,7 +218,7 @@ class GenerativeTrainer:
         `counts[kind]` steps of each kind of `loops`, in order, every
         random input drawn through the draw methods. Returns the losses of
         its last step by `loss_keys`."""
-        raise NotImplementedError(f"{self.name}: training is not ported yet")
+        raise NotImplementedError
 
     def _loop_counts(self) -> Dict[str, int]:
         """Steps of each kind of `loops` in one class round:

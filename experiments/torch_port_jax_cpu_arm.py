@@ -16,7 +16,17 @@ the JAX rows' keys and `platform` "cpu"; rows already there are skipped.
 `--summarize` prints, per arm of `--out`, the medians of yield (generated
 / needed) and of macro-F1 of the JAX package's CPU fits, the port's card
 fits (`experiments/results/torch_port_multiseed.jsonl`) and the JAX
-package's TPU rows, with two-sided Mann-Whitney U p-values of each pair.
+package's TPU rows, with two-sided Mann-Whitney U p-values of each pair,
+and, where rows carry them (`needed_per_class`, `generated_per_class`),
+each class's median yield and the share of seeds in which it fills.
+`--port-serial <file>` adds the port's rows of an arm refitted one seed at
+a time, held to the port's banked rows of the same seeds (paired), and
+`--jax-serial <file>` the JAX package's CPU rows of such a refit
+(`--serial-below 30 --out <file>`), held to its banked CPU rows:
+
+    python experiments/torch_port_jax_cpu_arm.py --summarize \
+        --port-serial experiments/results/torch_port_serial_multiseed.jsonl \
+        --jax-serial experiments/results/torch_port_jax_cpu_serial_multiseed.jsonl
 """
 
 import argparse
@@ -65,6 +75,7 @@ def run_one(model_name, seed, fixture, balanced, fresh_clf, mode, out_dir, model
             "binary_f1": r["binary_metrics"]["F1"],
             "generated": int(len(r["augmented"].tr_samples) - len(ds.tr_labels)),
             "needed": study.needed_rows(ds.tr_labels, gen_mode),
+            **study.per_class(ds.tr_labels, r["augmented"].tr_labels, gen_mode),
             "total_seconds": round(time.time() - t0, 1),
             "gan_epochs": config_lib.settings.gan.epochs,
             "clf_epochs": config_lib.settings.classifier.epochs}
@@ -109,25 +120,74 @@ def read(path: pathlib.Path, framework=None):
             and (framework is None or r.get("framework") == framework)]
 
 
-def summarize(out: pathlib.Path) -> list:
-    from scipy.stats import mannwhitneyu
+def per_class(rows) -> dict:
+    """Over the rows that carry per-class counts: each class's median yield
+    (generated / needed, of the classes that need rows) and the share of
+    seeds in which it fills (generated >= 90% of needed)."""
+    rows = [r for r in rows if "needed_per_class" in r]
+    if not rows:
+        return {}
+    need = np.array([r["needed_per_class"] for r in rows], float)
+    got = np.array([r["generated_per_class"] for r in rows], float)
+    cls = np.nonzero(need.min(0) > 0)[0]
+    y = got[:, cls] / need[:, cls]
+    return {"seeds": len(rows), "classes": cls.tolist(),
+            "median_yield": np.median(y, 0).round(4).tolist(),
+            "fills": (y >= 0.9).mean(0).round(4).tolist(),
+            "classes_filled_per_seed": np.bincount((y >= 0.9).sum(1),
+                                                   minlength=len(cls) + 1).tolist()}
+
+
+def summarize(out: pathlib.Path, port_serial=None, jax_serial=None) -> list:
+    """Per arm of `out`: medians and p-values of the three sides (see the
+    module docstring) and each side's per-class counts where its rows
+    carry them. With `port_serial` (`jax_serial`), the port's (the JAX
+    package's CPU) rows of an arm fitted serially (`--serial-below 30`) are
+    held to the same package's banked rows of the same seeds (Wilcoxon
+    signed-rank, paired by seed) and to the other sides (Mann-Whitney)."""
+    from scipy.stats import mannwhitneyu, wilcoxon
 
     sides = {"jax_cpu": read(out),
              "port": read(RESULTS / "torch_port_multiseed.jsonl", study.FRAMEWORK),
              "jax_tpu": read(RESULTS / "ours_multiseed.jsonl", "cvaegan_tpu")}
+    #: serial refits: (side, rows, the side whose banked rows they pair with)
+    refits = [(side, read(pathlib.Path(path), framework), banked)
+              for side, path, framework, banked in (
+                  ("port_serial", port_serial, study.FRAMEWORK, "port"),
+                  ("jax_cpu_serial", jax_serial, "cvaegan_tpu", "jax_cpu")) if path]
     report = []
     for model, mode in sorted({(r["model"], r["mode"]) for r in sides["jax_cpu"]}):
         line = {"model": model, "mode": mode}
         arm = {k: [r for r in rows if (r["model"], r["mode"]) == (model, mode)]
                for k, rows in sides.items()}
+        paired = {}
+        for side, rows, banked in refits:
+            own = [r for r in rows if (r["model"], r["mode"]) == (model, mode)]
+            if own:
+                arm[side], paired[side] = own, banked
         line["seeds"] = {k: len(v) for k, v in arm.items()}
         for key, get in (("yield", lambda r: r["generated"] / r["needed"]),
                          ("macro_f1", lambda r: r["macro_f1"])):
             vals = {k: [get(r) for r in v] for k, v in arm.items()}
             line[key] = {f"{k}_median": float(np.median(v)) for k, v in vals.items()}
-            for a, b in (("jax_cpu", "port"), ("jax_cpu", "jax_tpu"), ("port", "jax_tpu")):
-                line[key][f"p_{a}_{b}"] = float(mannwhitneyu(
-                    vals[a], vals[b], alternative="two-sided").pvalue)
+            pairs = [("jax_cpu", "port"), ("jax_cpu", "jax_tpu"), ("port", "jax_tpu")]
+            pairs += [(side, other) for side in paired
+                      for other in ("jax_cpu", "jax_tpu", "port_serial") if other != side]
+            for a, b in pairs:
+                if a in vals and b in vals:
+                    line[key][f"p_{a}_{b}"] = float(mannwhitneyu(
+                        vals[a], vals[b], alternative="two-sided").pvalue)
+            for side, banked_side in paired.items():
+                banked = {r["seed"]: get(r) for r in arm[banked_side]
+                          if r.get("fit_mode") == "bank"}
+                own = [r for r in arm[side] if r["seed"] in banked]
+                a = np.array([get(r) for r in own])
+                b = np.array([banked[r["seed"]] for r in own])
+                line[key][f"{banked_side}_banked_same_seeds_median"] = float(np.median(b))
+                line[key][f"{side}_same_seeds_median"] = float(np.median(a))
+                line[key][f"p_{side}_{banked_side}_banked_paired"] = (
+                    float(wilcoxon(a, b).pvalue) if (a != b).any() else 1.0)
+        line["per_class"] = {k: c for k, v in arm.items() if (c := per_class(v))}
         report.append(line)
         print(json.dumps(line), flush=True)
     return report
@@ -145,10 +205,16 @@ def main() -> int:
                    help="GAN epochs (default: the settings', 500); cut only to rehearse")
     p.add_argument("--clf-epochs", type=int, default=None)
     p.add_argument("--summarize", action="store_true")
+    p.add_argument("--port-serial", default=None,
+                   help="with --summarize: the port's rows of an arm fitted serially, held "
+                        "to its banked rows of the same seeds")
+    p.add_argument("--jax-serial", default=None,
+                   help="with --summarize: the JAX package's CPU rows of an arm fitted "
+                        "serially, held to its banked CPU rows of the same seeds")
     args = p.parse_args()
     out = pathlib.Path(args.out)
     if args.summarize:
-        summarize(out)
+        summarize(out, args.port_serial, args.jax_serial)
         return 0
     import jax
 

@@ -99,6 +99,17 @@ def needed_rows(labels: np.ndarray, gen_mode: str) -> int:
     return int(counts.max() * len(counts) - counts.sum())
 
 
+def per_class(labels: np.ndarray, augmented_labels: np.ndarray, gen_mode: str) -> dict:
+    """Rows needed and rows generated for each class, as lists indexed by
+    class id (the unconditional scheme asks for no class in particular, so
+    its needed rows are the train set's class counts)."""
+    counts = np.bincount(labels)
+    after = np.bincount(augmented_labels, minlength=len(counts))
+    needed = counts if gen_mode == "unconditional" else counts.max() - counts
+    return {"needed_per_class": [int(n) for n in needed],
+            "generated_per_class": [int(n) for n in after[:len(counts)] - counts]}
+
+
 def run_one(model_name: str, seed: int, fixture, balanced: bool, mode_tag: str,
             card: str, device: str, out_dir: str, model=None,
             warm_start: bool = True) -> dict:
@@ -125,6 +136,7 @@ def run_one(model_name: str, seed: int, fixture, balanced: bool, mode_tag: str,
         "binary_f1": r["binary_metrics"]["F1"],
         "generated": int(len(r["augmented"].tr_samples) - n_train),
         "needed": needed_rows(ds.tr_labels, gen_mode),
+        **per_class(ds.tr_labels, r["augmented"].tr_labels, gen_mode),
         "total_seconds": round(time.time() - t0, 1),
         "compute_dtype": config_lib.settings.gan.compute_dtype,
         "gan_epochs": config_lib.settings.gan.epochs,

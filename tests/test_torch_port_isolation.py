@@ -50,7 +50,7 @@ def test_import_loads_no_jax():
 @pytest.mark.parametrize("path", [*sorted(PACKAGE.rglob("*.py")),
                                   PACKAGE.parent / "chip_smoke.py",
                                   *(PACKAGE.parent / "experiments" / f"torch_port_{name}.py"
-                                    for name in ("multiseed", "strict_yield_split"))],
+                                    for name in ("multiseed", "strict_yield_split", "bf16_zoo"))],
                          ids=lambda p: (p.name if p.parent == PACKAGE.parent
                                         else str(p.relative_to(PACKAGE))
                                         if PACKAGE in p.parents

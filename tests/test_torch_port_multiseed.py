@@ -48,3 +48,55 @@ def test_compare_pairs_a_fresh_clf_arm_with_the_jax_one(study, tmp_path):
     bf16 = [_row("cvaegan_tpu_torch", "strict+bf16", 0.5, 0)]
     ((_, _, jax_mode, _, b),) = study.paired_arms(bf16, ref)
     assert jax_mode == "strict" and [r["macro_f1"] for r in b] == [0.14]
+
+
+@pytest.mark.parametrize("gen_mode", ["qualified", "unconditional"])
+def test_per_class_counts_sum_to_the_arm_totals(study, gen_mode):
+    """Per class, the rows needed (the largest class's count less each
+    class's; the train set's counts for the unconditional scheme) and the
+    rows generated (the augmented labels' counts less the train set's)
+    sum to `needed_rows` and to the rows added; a class the augmented set
+    lacks reads 0."""
+    import numpy as np
+
+    labels = np.repeat(np.arange(4), [50, 20, 10, 5]).astype(np.int32)
+    added = np.repeat(np.arange(3), [0, 30, 7]).astype(np.int32)
+    got = study.per_class(labels, np.concatenate([labels, added]), gen_mode)
+    assert got["generated_per_class"] == [0, 30, 7, 0]
+    assert sum(got["needed_per_class"]) == study.needed_rows(labels, gen_mode)
+    want = [50, 20, 10, 5] if gen_mode == "unconditional" else [0, 30, 40, 45]
+    assert got["needed_per_class"] == want
+
+
+def test_summarize_pairs_each_serial_refit_with_its_own_banked_rows(tmp_path, capsys):
+    """`experiments/torch_port_jax_cpu_arm.py --summarize` with
+    `--port-serial` and `--jax-serial`: each refit is paired by seed with
+    the banked rows of its own package (the port's committed rows, the JAX
+    package's CPU rows of `--out`), and the two refits are compared."""
+    path = SCRIPT.parent / "torch_port_jax_cpu_arm.py"
+    spec = importlib.util.spec_from_file_location("torch_port_jax_cpu_arm", path)
+    arm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(arm)
+
+    def rows(framework, fit_mode, generated):
+        return [{"framework": framework, "model": "rain_gan", "mode": "balanced",
+                 "seed": seed, "macro_f1": 0.6, "generated": g, "needed": 100,
+                 "fit_mode": fit_mode} for seed, g in zip((10, 11, 12), generated)]
+
+    def write(name, records):
+        (tmp_path / name).write_text("".join(json.dumps(r) + "\n" for r in records))
+        return tmp_path / name
+
+    out = write("cpu.jsonl", rows("cvaegan_tpu", "bank", [0, 10, 20]))
+    jax_serial = write("jax_serial.jsonl", rows("cvaegan_tpu", "serial", [50, 60, 70]))
+    port_serial = write("port_serial.jsonl", rows("cvaegan_tpu_torch", "serial", [5, 6, 7]))
+    (line,) = arm.summarize(out, port_serial, jax_serial)
+    capsys.readouterr()
+    got = line["yield"]
+    assert line["seeds"]["jax_cpu_serial"] == line["seeds"]["port_serial"] == 3
+    assert got["jax_cpu_serial_same_seeds_median"] == 0.6
+    assert got["jax_cpu_banked_same_seeds_median"] == 0.1
+    assert got["port_serial_same_seeds_median"] == 0.06
+    for key in ("p_jax_cpu_serial_jax_cpu_banked_paired", "p_port_serial_port_banked_paired",
+                "p_jax_cpu_serial_port_serial"):
+        assert 0.0 < got[key] <= 1.0, key

@@ -48,10 +48,13 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from cvaegan_tpu import CVAEGAN as JaxCVAEGAN
 from cvaegan_tpu.core import config as jconfig
 from cvaegan_tpu.parallel import mesh as jmesh
+from cvaegan_tpu_torch.core.schedules import progressive_lambda
 from cvaegan_tpu_torch.parallel import mesh as mesh_lib
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
 import torch_port_parallel_worker as worker  # noqa: E402
+from test_torch_port_bf16 import BF16_TOL  # noqa: E402
+from test_torch_port_bf16_zoo import ANCHOR_KEYS, assert_anchored, gate_misses  # noqa: E402
 from torch_port_parallel_worker import job, start_world  # noqa: E402
 
 TRAINERS = ["CVAEGAN", "TMGGAN", "CTGAN", "RAIN_GAN", "QG_SMOTE", "SNGAN",
@@ -59,6 +62,12 @@ TRAINERS = ["CVAEGAN", "TMGGAN", "CTGAN", "RAIN_GAN", "QG_SMOTE", "SNGAN",
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 EPOCH_TOL = dict(rtol=5e-2, atol=5e-3)
 STEP_BATCH, EPOCH_BATCH = 64, 32
+#: the trainers whose epoch runs under the bf16 policy on the 4 data ranks
+BF16_EPOCHS = ["RAIN_GAN"]
+#: relative nudges of the single-process bf16 epoch's parameters, of one
+#: to ten float32 roundings, whose epochs span the chaotic losses' band
+#: (`assert_bf16_epoch_close`)
+BF16_NUDGES = (0.0, 1e-7, 2e-7, 1e-6)
 EPOCH = 350.0  # inside the lambda_class ramp
 
 
@@ -98,15 +107,17 @@ def _warm(jt):
     return state
 
 
-def _step_inputs(jt, kind, key, class_id):
-    """The global inputs the JAX step draws from `key` (its own split)."""
+def _step_inputs(jt, kind, key, class_id, eps_dtype=jnp.float32):
+    """The global inputs the JAX step draws from `key` (its own split); eps
+    in `eps_dtype`, the activations' dtype (as float32 values)."""
     cfg = jt.gan_cfg
     if kind == "g":
         k_x, k_eps, k_z, _, _ = jax.random.split(key, 5)
         x_real, y = jt._sample_batch(k_x, jt._data, class_id)
         return [np.array(a) for a in (
             x_real, y, jax.random.normal(k_z, (cfg.batch_size, cfg.z_size)),
-            jax.random.normal(k_eps, (cfg.batch_size, cfg.z_size)))]
+            jax.random.normal(k_eps, (cfg.batch_size, cfg.z_size), eps_dtype).astype(
+                jnp.float32))]
     k_x, k_z, _, _ = jax.random.split(key, 4)
     x_real, y = jt._sample_batch(k_x, jt._data, class_id)
     return [np.array(a) for a in (
@@ -136,10 +147,103 @@ def _jax_step(jt, state, kind, key, class_id, n, monkeypatch):
     return jax.device_get(new_state), jax.device_get(loss), masks
 
 
+def _exact_step(tree, x, y, kind, inputs, masks):
+    """The port's CVAE-GAN step in float64 under no policy, single process,
+    on the global inputs and keep-masks: the bf16 steps' yardstick
+    (`tests/test_torch_port_bf16.py`). Returns (state as `state_of`, loss)."""
+    from cvaegan_tpu_torch import CVAEGAN
+    from cvaegan_tpu_torch.core import losses as tlosses
+    from cvaegan_tpu_torch.models import layers as tl
+
+    port = CVAEGAN(seed=0, device="cpu", settings=worker.settings(STEP_BATCH))
+    port._prepare((x, y))
+    port.load_jax_state(tree)
+    port.state.double()
+    for opt in port.optimizers.values():
+        opt.m, opt.v = [m.double() for m in opt.m], [v.double() for v in opt.v]
+    queue = list(masks)
+    t = [torch.from_numpy(np.asarray(a, np.float64 if a.dtype.kind == "f" else None))
+         for a in inputs]
+    with pytest.MonkeyPatch.context() as mp, tl.dtype_override(torch.float32):
+        mp.setattr(tl, "_keep_mask", lambda x_, keep_prob, generator:
+                   torch.from_numpy(queue.pop(0)))
+        mp.setattr(tlosses, "_f32", lambda *xs: xs[0] if len(xs) == 1 else xs)
+        if kind == "g":
+            lam = progressive_lambda(torch.tensor(EPOCH, dtype=torch.float64), 0.5, 200, 500)
+            loss = {k: float(v) for k, v in port._g_step(t[0], t[1].long(), t[2], t[3],
+                                                         lam).items()}
+        else:
+            loss = float((port._d_step if kind == "d" else port._c_step)(
+                t[0], t[1].long(), t[2]))
+    assert not queue
+    return worker.state_of(port), loss
+
+
+def bf16_epochs(name, x, y):
+    """The port's single-process bf16 epoch of `name`, from the state of
+    `worker.one_epoch` and from that state nudged by each of BF16_NUDGES."""
+    return [worker.one_epoch(name, x, y, EPOCH_BATCH, None, dtype="bfloat16", nudge=n)
+            for n in BF16_NUDGES]
+
+
+def assert_bf16_epoch_close(losses, epochs):
+    """A bf16 epoch's losses against the single-process bf16 `epochs`
+    (`bf16_epochs`): each loss the unnudged epoch holds within EPOCH_TOL
+    of the nudged ones agrees with it at EPOCH_TOL; a chaotic loss, one
+    that a nudge of one to ten float32 roundings moves past EPOCH_TOL
+    (RAIN-GAN's adversarial loss under bf16: 10.5 moves to 8.625 at 2e-7,
+    its critic's bf16 scores near 10 round in steps of 1/16), lies within
+    EPOCH_TOL of the span of the nudged epochs."""
+    base = epochs[0]["losses"]
+    chaotic = 0
+    for k, v in base.items():
+        spread = [e["losses"][k] for e in epochs]
+        lo, hi = min(spread), max(spread)
+        band = EPOCH_TOL["atol"] + EPOCH_TOL["rtol"] * abs(v)
+        if hi - lo <= band:
+            np.testing.assert_allclose(losses[k], v, err_msg=k, **EPOCH_TOL)
+            continue
+        chaotic += 1
+        margin = EPOCH_TOL["atol"] + EPOCH_TOL["rtol"] * max(abs(lo), abs(hi))
+        assert lo - margin <= losses[k] <= hi + margin, (k, losses[k], spread)
+    assert chaotic < len(base), "every loss moved under the nudges"
+
+
+def _jax_steps_again(jt, state, kind, steps, n):
+    """`_jax_step` of the step `kind` at the other keys of `steps` (those
+    named `kind` + a suffix), from the one compiled step the first
+    `_jax_step` of `kind` traced: its keep-masks are constants of it, the
+    same at every key. Returns {name: (new state, loss, masks)}."""
+    rng, masks = np.random.default_rng(11), []
+
+    def bernoulli(key, p=0.5, shape=None):
+        masks.append(rng.random(shape) < p)
+        return jnp.asarray(masks[-1])
+
+    mesh = jmesh.make_mesh(n, 1)
+    put = lambda tree: jax.tree.map(  # noqa: E731
+        lambda a: jax.device_put(a, NamedSharding(mesh, P())), tree)
+    step = {"d": jt._d_step, "c": jt._c_step,
+            "g": lambda s, d, c, k: jt._g_step(s, d, c, jnp.float32(EPOCH), k)}[kind]
+    out = {}
+    with pytest.MonkeyPatch.context() as mp, jmesh.use_mesh(mesh):
+        mp.setattr(jax.random, "bernoulli", bernoulli)
+        compiled = {}
+        for name, (key, class_id) in steps.items():
+            if name[0] != kind or name == kind:
+                continue
+            if class_id not in compiled:
+                compiled[class_id] = jax.jit(lambda s, d, k, c=class_id: step(s, d, c, k))
+            new_state, loss = compiled[class_id](put(state), put(jt._data), key)
+            out[name] = (jax.device_get(new_state), jax.device_get(loss), list(masks))
+    return out
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory, blob_dataset):
-    """The 4-rank and the uneven 3-rank world, their JAX steps and the
-    port's single-process epochs."""
+    """The 4-rank and the uneven 3-rank world, their JAX steps (float32,
+    and bf16 on 4 devices with the float64 steps that measure them) and
+    the port's single-process epochs."""
     mp = pytest.MonkeyPatch()
     old_batch = jconfig.settings.gan.batch_size
     jconfig.settings.gan.batch_size = STEP_BATCH
@@ -158,11 +262,26 @@ def worlds(tmp_path_factory, blob_dataset):
         masks = {kind: jax_steps[4, kind][2] for kind in steps}
         step_job = ("cvaegan_steps", dict(tree=tree, x=x, y=y, batch_size=STEP_BATCH,
                                           inputs=inputs, masks=masks, epoch=EPOCH))
+        jconfig.settings.gan.compute_dtype = "bfloat16"
+        try:
+            steps16 = {**steps, **{f"d{i}": (jax.random.PRNGKey(21 + 100 * i), 3)
+                                   for i in range(1, ANCHOR_KEYS)}}
+            inputs16 = {kind: _step_inputs(jt, kind[0], *steps16[kind], eps_dtype=jnp.bfloat16)
+                        for kind in steps16}
+            jax_bf16 = {kind: _jax_step(jt, state, kind, key, class_id, 4, mp)
+                        for kind, (key, class_id) in steps.items()}
+            jax_bf16.update(_jax_steps_again(jt, state, "d", steps16, 4))
+        finally:
+            jconfig.settings.gan.compute_dtype = "float32"
+        masks16 = {kind: jax_bf16[kind][2] for kind in steps16}
         root = tmp_path_factory.mktemp("worlds")
         wait4 = start_world(root / "w4", 4, [
             ("mesh_basics", dict(tree=tree, x=x, y=y)), step_job,
             ("epochs", dict(names=TRAINERS, x=x, y=y, batch_size=EPOCH_BATCH)),
-            ("epoch_2x2", dict(x=x, y=y, batch_size=EPOCH_BATCH))])
+            ("epoch_2x2", dict(x=x, y=y, batch_size=EPOCH_BATCH)),
+            ("cvaegan_steps_bf16", dict(tree=tree, x=x, y=y, batch_size=STEP_BATCH,
+                                        inputs=inputs16, masks=masks16, epoch=EPOCH)),
+            ("epochs_bf16", dict(names=BF16_EPOCHS, x=x, y=y, batch_size=EPOCH_BATCH))])
         wait3 = start_world(root / "w3", 3, [step_job])
         # while the worlds run: the JAX steps on 3 devices (the same masks)
         for kind, (key, class_id) in steps.items():
@@ -171,9 +290,13 @@ def worlds(tmp_path_factory, blob_dataset):
                                                             masks[kind]))
         torch.set_num_threads(1)
         single = {name: worker.one_epoch(name, x, y, EPOCH_BATCH, None) for name in TRAINERS}
+        single_bf16 = {name: bf16_epochs(name, x, y) for name in BF16_EPOCHS}
+        exact16 = {kind: _exact_step(tree, x, y, kind[0], inputs16[kind], masks16[kind])
+                   for kind in steps16}
         jax_specs = jmesh.shard_net_state(state, jmesh.make_mesh(2, 2))
         yield {4: wait4(), 3: wait3(), "jax": jax_steps, "single": single,
-               "jax_specs": jax_specs, "tree": tree}
+               "jax_specs": jax_specs, "tree": tree, "jax_bf16": jax_bf16,
+               "exact_bf16": exact16, "single_bf16": single_bf16}
     finally:
         jconfig.settings.gan.batch_size = old_batch
         mp.undo()
@@ -309,7 +432,72 @@ def test_cvaegan_step_matches_jax_mesh(worlds, n, kind):
         np.testing.assert_allclose(value, want, err_msg=key, **STEP_TOL)
 
 
+@pytest.mark.parametrize("kind", ["d", "c", "g"])
+def test_cvaegan_bf16_step_on_mesh_as_exact_as_jax(worlds, kind):
+    """The D, C and E+G steps under the bf16 policy on 4 data ranks, held as
+    the single-process bf16 steps are (`tests/test_torch_port_bf16_zoo.py`)
+    to JAX's bf16 step under `use_mesh(make_mesh(4, 1))`: losses within
+    BF16_TOL of JAX's, every tensor float32 (counts int), and each as exact
+    as JAX's against the single-process float64 step on the same global
+    inputs and keep-masks (eps drawn in bf16, as JAX draws it). The D step
+    misses that gate at its own key on one tensor (the critic's last bias:
+    2.3x JAX's error), where JAX's C and E+G steps miss the mirrored gate
+    on three: it is held over ANCHOR_KEYS keys by `assert_anchored`, as the
+    single-process ANCHORED steps are (ROADMAP C9)."""
+    out = job(worlds[4], "cvaegan_steps_bf16")
+    names = [kind] + ([f"d{i}" for i in range(1, ANCHOR_KEYS)] if kind == "d" else [])
+    per_key = []
+    for step in names:
+        new_state, loss, _ = worlds["jax_bf16"][step]
+        exact, exact_loss = worlds["exact_bf16"][step]
+        assert [res[step]["rows"] for res in out] == [16] * 4
+        assert len({res[step]["digest"] for res in out}) == 1, "ranks differ"
+        got = out[0][step]
+        losses = ({k: (got["loss"][k], float(loss[k]), exact_loss[k]) for k in got["loss"]}
+                  if kind == "g" else {"loss": (got["loss"], float(loss), exact_loss)})
+        if len(names) == 1:
+            for g, w, _ in losses.values():
+                assert abs(g - w) <= BF16_TOL["atol"] + BF16_TOL["rtol"] * abs(w), (g, w)
+        errors = {f"loss {k}": (abs(g - e), abs(w - e), abs(e)) for k, (g, w, e) in losses.items()}
+        state, tree = got["state"], _tree(new_state)
+        assert state.keys() == exact.keys()
+        for key in state:
+            name, _, rest = key.partition("/")
+            if key.endswith("#count"):
+                assert state[key] == exact[key] == int(
+                    tree[name.split("#")[0]]["opt_state"]["count"]), key
+                continue
+            path, _, moment = rest.partition("#")
+            path = tuple(path.split("/"))
+            want = (_lookup(tree[name]["opt_state"][moment], path[1:]) if moment
+                    else _lookup(tree[name], path))
+            assert state[key].dtype == np.float32, key
+            e = np.asarray(exact[key], np.float64)
+            errors[key] = (float(np.abs(state[key] - e).max()),
+                           float(np.abs(np.asarray(want, np.float64) - e).max()),
+                           float(np.abs(e).max()))
+        per_key.append(errors)
+    if len(per_key) == 1:
+        for key, errs in per_key[0].items():
+            if not key.startswith("loss "):
+                assert not gate_misses(*errs)[0], (key, errs)
+    else:
+        assert_anchored(per_key)
+
+
 # ----------------------------------------------------------------- epochs
+@pytest.mark.parametrize("name", BF16_EPOCHS)
+def test_bf16_epoch_matches_single_process(worlds, name):
+    """One epoch under the bf16 policy on 4 data ranks against the
+    single-process bf16 epoch, at the float32 epochs' band where the
+    single process holds it under nudges of its parameters
+    (`assert_bf16_epoch_close`); every rank's state bitwise equal."""
+    out = job(worlds[4], "epochs_bf16")
+    assert len({res[name]["digest"] for res in out}) == 1, "ranks differ"
+    assert_bf16_epoch_close(out[0][name]["losses"], worlds["single_bf16"][name])
+    assert out[0]["collectives"] > 0
+
+
 @pytest.mark.parametrize("name", TRAINERS)
 def test_epoch_matches_single_process(worlds, name):
     """One epoch on 4 data ranks (batch 32: 8 rows each) against the

@@ -55,6 +55,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent))
 import torch_port_parallel_worker as worker  # noqa: E402
 from test_torch_port_parallel import (  # noqa: E402
     EPOCH,
+    assert_bf16_epoch_close,
+    bf16_epochs,
     EPOCH_TOL,
     STEP_TOL,
     TRAINERS,
@@ -67,6 +69,11 @@ from test_torch_port_seed_bank import _Grid  # noqa: E402
 from torch_port_parallel_worker import job, start_world  # noqa: E402
 
 HARDEST = ["CVAEGAN", "TMGGAN", "CTGAN", "RAIN_GAN"]
+#: the trainers whose placed epoch runs under the bf16 policy on (1, 2)
+BF16_EPOCHS = ["RAIN_GAN"]
+#: the streamed corpus: windows of STREAM_WINDOW rows (the second without
+#: class 2), STREAM_EPOCHS epochs each, batch STREAM_BATCH over 2 data ranks
+STREAM_WINDOW, STREAM_EPOCHS, STREAM_BATCH = 120, 2, 16
 FITS = ["CVAEGAN", "TMGGAN", "CTGAN", "QG_SMOTE"]
 STEP_BATCH, EPOCH_BATCH, FIT_EPOCHS = 64, 32, 3
 BANK_SEEDS = [0, 1, 2, 3]
@@ -116,6 +123,20 @@ def _jax_trainer(name, blob_dataset):
     return jt
 
 
+def _stream_corpus(path, blob_dataset):
+    """Two windows of the blob rows as a CSV pair (x, one-hot y) written
+    with numpy, the second window without class 2, and a last window of
+    half the rows."""
+    x, y = blob_dataset.tr_samples, blob_dataset.tr_labels
+    first = np.arange(STREAM_WINDOW)
+    second = np.nonzero(y != 2)[0][STREAM_WINDOW:2 * STREAM_WINDOW]
+    rows = np.concatenate([first, second])
+    path.mkdir(parents=True)
+    np.savetxt(path / "x.csv", x[rows], delimiter=",", fmt="%.9g")
+    np.savetxt(path / "y.csv", np.eye(5, dtype=np.int64)[y[rows]], delimiter=",", fmt="%d")
+    return str(path / "x.csv"), str(path / "y.csv")
+
+
 @pytest.fixture(scope="module")
 def tp(tmp_path_factory, blob_dataset):
     """Both worlds' results, the JAX steps and states, and the port's
@@ -151,10 +172,15 @@ def tp(tmp_path_factory, blob_dataset):
             ("seed_bank", dict(x=bx, y=by, batch_size=16, seeds=BANK_SEEDS, epochs=1,
                                n_model=2))])
         ckpt = root / "ckpt"
+        corpus = _stream_corpus(root / "corpus", blob_dataset)
+        stream = dict(window_rows=STREAM_WINDOW, batch_size=STREAM_BATCH,
+                      epochs=STREAM_EPOCHS)
         wait2 = start_world(root / "w2", 2, [
             ("tp_epochs", dict(names=TRAINERS, x=x, y=y, batch_size=EPOCH_BATCH)),
             ("tp_serving", dict(tree=tree, x=x, y=y)),
-            ("tp_capture_key", dict(x=x, y=y, batch_size=EPOCH_BATCH, ckpt=str(ckpt)))])
+            ("tp_capture_key", dict(x=x, y=y, batch_size=EPOCH_BATCH, ckpt=str(ckpt))),
+            ("tp_epochs_bf16", dict(names=BF16_EPOCHS, x=x, y=y, batch_size=EPOCH_BATCH)),
+            ("streamed", dict(x_csv=corpus[0], y_csv=corpus[1], **stream))])
         torch.set_num_threads(1)
         # while the worlds run: the specs of every trainer, both packages
         specs = {name: (_port_specs(name, x, y),
@@ -162,10 +188,15 @@ def tp(tmp_path_factory, blob_dataset):
                                               jmesh.make_mesh(4, 2)))
                  for name in TRAINERS}
         single = {name: worker.one_epoch(name, x, y, EPOCH_BATCH, None) for name in TRAINERS}
+        single_bf16 = {name: bf16_epochs(name, x, y) for name in BF16_EPOCHS}
+        streamed = {mode: worker.streamed_fit(*corpus, STREAM_WINDOW, STREAM_BATCH,
+                                              STREAM_EPOCHS, None, balanced=mode == "balanced")
+                    for mode in ("strict", "balanced")}
         worlds = {8: wait8(), 2: wait2()}
         print("job seconds:", {w: res[0]["seconds"] for w, res in worlds.items()})
         yield {**worlds, "specs": specs, "jax": jax_steps, "single": single, "ckpt": ckpt,
-               "trees": trees, "jax_states": {"CVAEGAN": state, "TMGGAN": tmg}}
+               "trees": trees, "jax_states": {"CVAEGAN": state, "TMGGAN": tmg},
+               "single_bf16": single_bf16, "streamed": streamed}
     finally:
         jconfig.settings.gan.batch_size = old_batch
         torch.set_num_threads(old_threads)
@@ -339,15 +370,19 @@ def test_spectral_dense_sliced_matches_single_process(tp):
 
 
 # ----------------------------------------------------------------- epochs
-def _check_epochs(tp, world, name):
-    out = job(tp[world], "tp_epochs")
+def _check_epochs(tp, world, name, dtype="float32"):
+    bf16 = dtype == "bfloat16"
+    out = job(tp[world], "tp_epochs_bf16" if bf16 else "tp_epochs")
     single = tp["single"][name]
     assert len({res[name]["whole"] for res in out}) == 1, "gathered states differ"
     for m in range(2):
         assert len({res[name]["digest"] for res in out[m::2]}) == 1, f"model rank {m}"
     assert all(res[name]["losses"] == out[0][name]["losses"] for res in out)
-    for k, v in single["losses"].items():
-        np.testing.assert_allclose(out[0][name]["losses"][k], v, err_msg=k, **EPOCH_TOL)
+    if bf16:
+        assert_bf16_epoch_close(out[0][name]["losses"], tp["single_bf16"][name])
+    else:
+        for k, v in single["losses"].items():
+            np.testing.assert_allclose(out[0][name]["losses"][k], v, err_msg=k, **EPOCH_TOL)
     assert out[0]["collectives"] > 0
 
 
@@ -359,6 +394,55 @@ def test_epoch_on_1x2_matches_single_process(tp, name):
 @pytest.mark.parametrize("name", HARDEST)
 def test_epoch_on_4x2_matches_single_process(tp, name):
     _check_epochs(tp, 8, name)
+
+
+@pytest.mark.parametrize("name", BF16_EPOCHS)
+def test_bf16_epoch_on_1x2_matches_single_process(tp, name):
+    """One placed epoch under the bf16 policy on (1, 2) against the
+    single-process bf16 epoch, at the float32 epochs' band where the single
+    process holds it under nudges (`assert_bf16_epoch_close`)."""
+    _check_epochs(tp, 2, name, dtype="bfloat16")
+
+
+# -------------------------------------------------------------- streamed
+def _close(a, b, what):
+    assert a.keys() == b.keys(), what
+    for k in a:
+        np.testing.assert_allclose(np.asarray(a[k], np.float64), np.asarray(b[k], np.float64),
+                                   err_msg=f"{what} {k}", **EPOCH_TOL)
+
+
+@pytest.mark.parametrize("mode", ["strict", "balanced"])
+def test_streamed_fit_on_2_data_ranks_matches_single_process(tp, mode):
+    """`fit_streamed` of two windows (the second without class 2: strict
+    rounds leave it out, balanced labels are drawn over the four present
+    classes, and a rank's 8 rows of a batch need not hold each) on 2 data
+    ranks whose trainers are of seeds 0 and 1: the first window's
+    `_sync_ranks` (once, and only then) gives rank 1 rank 0's networks,
+    Adam state and generator, bitwise, which are the single process's;
+    after each window both ranks are bitwise equal, and their state and
+    loss history agree with the single-process streamed fit at the
+    epochs' band."""
+    out = job(tp[2], "streamed")
+    single = tp["streamed"][mode]
+    assert single["syncs"] == 0 and len(single["windows"]) == single["n_windows"] == 2
+    assert [res[mode]["syncs"] for res in out] == [1, 1]
+    assert {res[mode]["synced"] for res in out} == {single["synced"]}
+    for w in range(2):
+        assert len({res[mode]["windows"][w]["digest"] for res in out}) == 1, f"window {w}"
+        got, want = out[0][mode]["windows"][w], single["windows"][w]
+        assert all(len(v) == (w + 1) * STREAM_EPOCHS for v in got["history"].values())
+        _close(got["history"], want["history"], f"window {w} history")
+        _close(got["state"], want["state"], f"window {w} state")
+
+
+def test_streamed_fit_with_an_empty_data_shard_raises(tp):
+    """A batch of 1 row on 2 data ranks leaves rank 1 no rows: where JAX
+    pads the empty shard, the port raises on every rank (ROADMAP C, "Under
+    a mesh"), after the first window's sync and before any collective of
+    the epoch, so no rank is left waiting."""
+    for res in job(tp[2], "streamed"):
+        assert "leaves data rank 1 of 2 without rows" in res["empty_shard"]
 
 
 # ----------------------------------------------------------- fits, serving

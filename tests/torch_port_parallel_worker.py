@@ -68,10 +68,11 @@ from cvaegan_tpu_torch.parallel import distributed  # noqa: E402
 from cvaegan_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 
 
-def settings(batch_size: int, epochs: int = 1) -> tconfig.Settings:
+def settings(batch_size: int, epochs: int = 1, dtype: str = "float32") -> tconfig.Settings:
     s = tconfig.Settings()
     s.gan.batch_size = batch_size
     s.gan.epochs = epochs
+    s.gan.compute_dtype = dtype
     return s
 
 
@@ -136,38 +137,48 @@ def job_mesh_basics(tree, x, y):
     return out
 
 
-def job_cvaegan_steps(tree, x, y, batch_size, inputs, masks, epoch):
+def job_cvaegan_steps(tree, x, y, batch_size, inputs, masks, epoch, dtype="float32"):
     """The CVAE-GAN's D, C and E+G steps from `tree`, each on its fixed
     global inputs and dropout keep-masks, under a data mesh of the
-    world."""
-    queue = [m for step in ("d", "c", "g") for m in masks[step]]
+    world, under the compute policy `dtype` (the steps run outside a
+    trainer's own policy block: the process-wide setting). `inputs` and
+    `masks` are keyed by step, in order: "d", "c", "g", or one of them
+    followed by more characters for another key's step of that kind."""
+    queue = [m for step in inputs for m in masks[step]]
 
     def keep_mask(x_, keep_prob, generator):
         mask = torch.from_numpy(queue.pop(0))
         return mesh_lib.local_draw(lambda shape: mask, x_.shape)
 
     plain, tl._keep_mask = tl._keep_mask, keep_mask
+    policy, tconfig.settings.gan.compute_dtype = tconfig.settings.gan.compute_dtype, dtype
     try:
         return steps_on_masks(tree, x, y, batch_size, inputs, epoch, queue)
     finally:
         tl._keep_mask = plain
+        tconfig.settings.gan.compute_dtype = policy
+
+
+def job_cvaegan_steps_bf16(**kwargs):
+    """`job_cvaegan_steps` under the bf16 policy."""
+    return job_cvaegan_steps(**kwargs, dtype="bfloat16")
 
 
 def steps_on_masks(tree, x, y, batch_size, inputs, epoch, queue):
     mesh = mesh_lib.make_mesh(dist.get_world_size(), 1)
     out = {}
-    for kind in ("d", "c", "g"):
+    for kind in inputs:
         port = cvaegan_tpu_torch.CVAEGAN(seed=0, device="cpu", settings=settings(batch_size))
         port._prepare((x, y))
         port.load_jax_state(tree)
         with mesh_lib.use_mesh(mesh), mesh_lib.data_parallel(batch_size):
             t = [mesh_lib.shard_leading(torch.from_numpy(a)) for a in inputs[kind]]
-            if kind == "g":
+            if kind[0] == "g":
                 lam = progressive_lambda(torch.tensor(epoch), 0.5, 200, 500)
                 got = port._g_step(t[0], t[1].long(), t[2], t[3], lam)
                 loss = {k: float(v) for k, v in got.items()}
             else:
-                step = port._d_step if kind == "d" else port._c_step
+                step = port._d_step if kind[0] == "d" else port._c_step
                 loss = float(step(t[0], t[1].long(), t[2]))
         state = state_of(port)
         out[kind] = {"loss": loss, "rows": int(t[0].shape[0]),
@@ -191,17 +202,23 @@ def draw_moments(trainer, seed: int = 5) -> None:
             opt.count.fill_(3)
 
 
-def one_epoch(name, x, y, batch_size, mesh, placed=False):
+def one_epoch(name, x, y, batch_size, mesh, placed=False, dtype="float32", nudge=0.0):
     """One epoch of trainer `name` from seed 0 and drawn Adam moments,
-    under `mesh` (or none); `placed`: on the state placed with
-    `shard_net_state`'s specs (`whole` is then the digest of its gathered
-    leaves)."""
+    under `mesh` (or none) and the compute policy `dtype`; `placed`: on
+    the state placed with `shard_net_state`'s specs (`whole` is then the
+    digest of its gathered leaves); `nudge`: every parameter first scaled
+    by 1 + nudge N(0, 1) (torch seed 1)."""
     cls = getattr(cvaegan_tpu_torch, name)
-    model = cls(seed=0, device="cpu", settings=settings(batch_size))
+    model = cls(seed=0, device="cpu", settings=settings(batch_size, dtype=dtype))
     model.verbose = False
     with mesh_lib.use_mesh(mesh):
         model._prepare((x, y))
         draw_moments(model)
+        if nudge:
+            g = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for p in model.state.parameters():
+                    p.mul_(1.0 + nudge * torch.randn(p.shape, generator=g))
         if placed:
             place(model, mesh)
         model._fit_prepared(1)
@@ -218,12 +235,17 @@ def place(trainer, mesh, n_model=None):
                    trainer.optimizers)
 
 
-def job_epochs(names, x, y, batch_size):
+def job_epochs(names, x, y, batch_size, dtype="float32"):
     mesh = mesh_lib.make_mesh(dist.get_world_size(), 1)
     mesh_lib.COLLECTIVES = 0
-    out = {name: one_epoch(name, x, y, batch_size, mesh) for name in names}
+    out = {name: one_epoch(name, x, y, batch_size, mesh, dtype=dtype) for name in names}
     out["collectives"] = mesh_lib.COLLECTIVES
     return out
+
+
+def job_epochs_bf16(**kwargs):
+    """`job_epochs` under the bf16 policy."""
+    return job_epochs(**kwargs, dtype="bfloat16")
 
 
 def job_epoch_2x2(x, y, batch_size):
@@ -434,13 +456,80 @@ def place_module(module, mesh, n_model=None):
     mesh_lib.place(module, mesh_lib.shard_net_state(module, mesh, n_model))
 
 
-def job_tp_epochs(names, x, y, batch_size):
+def job_tp_epochs(names, x, y, batch_size, dtype="float32"):
     """One epoch of each trainer on the placed state under the
     (world/2, 2) mesh."""
     mesh = _model_mesh()
     mesh_lib.COLLECTIVES = 0
-    out = {name: one_epoch(name, x, y, batch_size, mesh, placed=True) for name in names}
+    out = {name: one_epoch(name, x, y, batch_size, mesh, placed=True, dtype=dtype)
+           for name in names}
     out["collectives"] = mesh_lib.COLLECTIVES
+    return out
+
+
+def job_tp_epochs_bf16(**kwargs):
+    """`job_tp_epochs` under the bf16 policy."""
+    return job_tp_epochs(**kwargs, dtype="bfloat16")
+
+
+def streamed_fit(x_csv, y_csv, window_rows, batch_size, epochs, mesh, seed=0,
+                 balanced=False):
+    """`fit_streamed` of a CVAE-GAN of trainer seed `seed` under `mesh` (or
+    none), its Adam moments drawn as the first window builds the state
+    (numpy seed 5 + seed): a rank of another seed holds another state until
+    the first window's `_sync_ranks` gives it rank 0's. Returns how often
+    the ranks were synced, the digest of the static tensors and the
+    generator as the first window's epochs start, and after each window
+    the digest, the state (`state_of`) and the loss history so far."""
+    model = cvaegan_tpu_torch.CVAEGAN(seed=seed, device="cpu",
+                                      settings=settings(batch_size), balanced_mode=balanced)
+    model.verbose = False
+    out = {"windows": [], "syncs": 0}
+    build, sync, fit = model._build_state, model._sync_ranks, model._fit_prepared
+
+    def built():
+        state = build()
+        draw_moments(model, 5 + seed)
+        return state
+
+    def sync_ranks(m):
+        sync(m)
+        out["syncs"] += 1
+
+    def fitted(epochs_, eager=False):
+        if not out["windows"]:
+            out["synced"] = digest([*model._static_tensors()[:-1],
+                                    model.generator.get_state()])
+        fit(epochs_, eager)
+        out["windows"].append({
+            "digest": digest(model._static_tensors()[:-1]), "state": state_of(model),
+            "history": {k: list(v) for k, v in model.loss_history.items()}})
+
+    model._build_state, model._sync_ranks, model._fit_prepared = built, sync_ranks, fitted
+    with mesh_lib.use_mesh(mesh):
+        out["n_windows"] = model.fit_streamed(x_csv, y_csv, window_rows=window_rows,
+                                              epochs_per_window=epochs)
+    return out
+
+
+def job_streamed(x_csv, y_csv, window_rows, batch_size, epochs):
+    """`streamed_fit` on a data mesh of the world, each rank of trainer seed
+    = its rank, in strict and in balanced mode; then the same corpus at a
+    batch that leaves the last data rank no rows: the error every rank
+    raises."""
+    mesh = mesh_lib.make_mesh(dist.get_world_size(), 1)
+    out = {mode: streamed_fit(x_csv, y_csv, window_rows, batch_size, epochs, mesh,
+                              seed=dist.get_rank(), balanced=mode == "balanced")
+           for mode in ("strict", "balanced")}
+    for mode in out:  # rank 0's states are the test's; the others' digests
+        for w in out[mode]["windows"]:
+            if dist.get_rank():
+                w["state"] = None
+    try:
+        streamed_fit(x_csv, y_csv, window_rows, dist.get_world_size() - 1, epochs, mesh)
+        out["empty_shard"] = None
+    except ValueError as e:
+        out["empty_shard"] = str(e)
     return out
 
 
