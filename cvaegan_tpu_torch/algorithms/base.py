@@ -36,6 +36,17 @@ policy (`_policy_key`), and generation returns float32 arrays.
 `generate_samples_fast` runs the float32 fused kernel under either
 policy, as JAX's does.
 
+Spans (`utils.profiling.span`, on while a `torch.profiler` session
+records): `fit` (a `fit` call, and each window of `fit_streamed`),
+`fit.prepare`, `fit.capture`, `fit.epochs` (one chunk's epochs through
+the transfer of their losses) and `fit.chunk_end`; the phases of a step,
+`step.d`, `step.c` and `step.eg` (CVAE-GAN's E+G step; other trainers'
+own steps count to no phase), `step.adam`, and `step.draw` (every draw
+method and dropout mask), which during a capture also mark whose kernel
+nodes are whose; and the fast path's `gen.fast`,
+`gen.draw`, `gen.fold`, `gen.forward` and `gen.copy`. Counts:
+`fit.captures`, `fit.replays`, `gen.fold_builds`.
+
 Out of core: `fit_streamed` streams an (x, y) CSV pair through windows of
 a fixed row count, each trained for a number of epochs with the state
 kept (`cvaegan_tpu/algorithms/base.py:347-458`). With `checkpoint_dir`
@@ -88,6 +99,7 @@ from cvaegan_tpu_torch.models import layers, mlp
 from cvaegan_tpu_torch.models.layers import forward_with, one_hot
 from cvaegan_tpu_torch.parallel import mesh as mesh_lib
 from cvaegan_tpu_torch.parallel.mesh import shard_leading
+from cvaegan_tpu_torch.utils import profiling
 from cvaegan_tpu_torch.utils.checkpoint import save_checkpoint
 from cvaegan_tpu_torch.utils.profiling import nan_debug_active
 
@@ -118,6 +130,13 @@ def _as_arrays(dataset) -> Tuple[np.ndarray, np.ndarray]:
         return np.asarray(dataset[0], np.float32), np.asarray(dataset[1], np.int32)
     raise TypeError("expected a TabularDataset, a compat TrDataset/TeDataset or an "
                     f"(samples, labels) tuple, got {type(dataset)!r}")
+
+
+def _data_bytes(samples: np.ndarray, labels: np.ndarray, index: ClassIndex) -> int:
+    """Bytes a fit's data takes to the device: rows, labels and the class
+    index."""
+    return int(samples.nbytes + labels.nbytes
+               + sum(t.numel() * t.element_size() for t in (index.table, index.counts)))
 
 
 class GenerativeTrainer:
@@ -326,6 +345,7 @@ class GenerativeTrainer:
         return progressive_lambda(epoch, self.hparams["lambda_class"], 200, 500)
 
     # ------------------------------------------------------------- sampling
+    @profiling.spanned("step.draw")
     def _sample_batch(self, class_id: Optional[int]):
         """(x_real, labels) for one conditional update: rows of class
         `class_id` in strict mode, a class-balanced mixed batch in
@@ -338,6 +358,7 @@ class GenerativeTrainer:
                                class_id, bs)
         return x, shard_leading(self._labels(class_id, bs))
 
+    @profiling.spanned("step.draw")
     def _sample_labels(self, class_id: Optional[int]) -> torch.Tensor:
         """Labels for updates that need no real batch: the target class in
         strict mode, uniform over the present classes in balanced_mode."""
@@ -346,6 +367,7 @@ class GenerativeTrainer:
             return shard_leading(present_labels(self.generator, (bs,), self._data["index"]))
         return shard_leading(self._labels(class_id, bs))
 
+    @profiling.spanned("step.draw")
     def _random_batch(self):
         """(x_real, labels): a uniform batch over the whole train set, for
         the unconditional family."""
@@ -376,6 +398,11 @@ class GenerativeTrainer:
         """Optimizer steps of one epoch."""
         return len(self._class_rounds()) * sum(self._loop_counts().values())
 
+    def _replica_steps_per_epoch(self) -> int:
+        """Optimizer steps of one epoch, summed over the replicas it trains
+        (a seed bank's; a trainer is one)."""
+        return self._steps_per_epoch()
+
     def _generators(self) -> List[torch.Generator]:
         """Every generator an epoch draws from (a seed bank has one per
         replica)."""
@@ -391,6 +418,7 @@ class GenerativeTrainer:
         x_fake, _ = apply_train(self.state["generator"], z, y)
         return x_fake
 
+    @profiling.spanned("step.d")
     def _d_step(self, x_real, y, z) -> torch.Tensor:
         """Critic update: -E[D(x,y)] + E[D(G(z,y),y)] (reference
         `src/cvae_gan.py:104-128`), one forward over concat(real, fake)
@@ -407,6 +435,7 @@ class GenerativeTrainer:
         loss, _ = grad_update(self.optimizers["discriminator"], loss_fn)
         return loss.detach()
 
+    @profiling.spanned("step.c")
     def _c_step(self, x_real, y, z=None) -> torch.Tensor:
         """Companion-classifier update: CE(real) + CE(fake) over one fused
         forward (reference `src/cvae_gan.py:131-157`), or CE(real) alone
@@ -428,16 +457,18 @@ class GenerativeTrainer:
 
     # ---------------------------------------------------------------- setup
     def _prepare(self, dataset) -> None:
-        samples, labels = _as_arrays(dataset)
-        self.feature_num = int(samples.shape[1])
-        self.label_num = int(labels.max()) + 1 if labels.size else 0
-        self._set_data(samples, labels, ClassIndex.build(labels, self.label_num,
-                                                         device=self.device))
-        if self.state is None:
-            self.state = self._build_state()
-        mesh = mesh_lib.current_mesh()
-        if mesh is not None:
-            self._sync_ranks(mesh)
+        with profiling.span("fit.prepare") as sp:
+            samples, labels = _as_arrays(dataset)
+            self.feature_num = int(samples.shape[1])
+            self.label_num = int(labels.max()) + 1 if labels.size else 0
+            index = ClassIndex.build(labels, self.label_num, device=self.device)
+            self._set_data(samples, labels, index)
+            sp.set(rows=len(samples), bytes=_data_bytes(samples, labels, index))
+            if self.state is None:
+                self.state = self._build_state()
+            mesh = mesh_lib.current_mesh()
+            if mesh is not None:
+                self._sync_ranks(mesh)
 
     def _sync_ranks(self, mesh) -> None:
         """Give every rank of `mesh` the first rank's networks, optimizer
@@ -497,10 +528,12 @@ class GenerativeTrainer:
         return torch.full((num,), int(target_label), dtype=torch.int64,
                           device=self.device)
 
+    @profiling.spanned("step.draw")
     def _uniform(self, shape) -> torch.Tensor:
         """float32 draws uniform on [0, 1) of `shape`."""
         return torch.rand(shape, generator=self.generator, device=self.device)
 
+    @profiling.spanned("step.draw")
     def _normal(self, shape) -> torch.Tensor:
         """float32 standard normal draws of `shape`."""
         return torch.randn(shape, generator=self.generator, device=self.device)
@@ -520,6 +553,7 @@ class GenerativeTrainer:
         return mesh_lib.local_rows(self._prior(self.gan_cfg.batch_size))
 
     # ------------------------------------------------------------------ fit
+    @profiling.spanned("fit")
     def fit(self, dataset, eager: bool = False) -> None:
         """Train for `settings.gan.epochs` epochs. On CUDA each epoch is a
         replay of one captured CUDA graph; `eager=True` runs the plain
@@ -590,19 +624,23 @@ class GenerativeTrainer:
                 missing = np.nonzero(counts == 0)[0].tolist()
                 print(f"{self.name} window {n_windows}: classes {missing} absent — "
                       "their class rounds are skipped this window")
-            index = ClassIndex.build(labels, self.label_num, pad_to=window_rows,
-                                     device=self.device)
-            n = len(xw)
-            if n < window_rows:  # pad by repeating the window's rows
-                reps = np.arange(window_rows - n) % n
-                xw = np.concatenate([xw, xw[reps]])
-                labels = np.concatenate([labels, labels[reps]])
-            self._set_data(np.asarray(xw, np.float32), labels, index)
-            if self.state is None:
-                self.state = self._build_state()
-                if mesh_lib.current_mesh() is not None:
-                    self._sync_ranks(mesh_lib.current_mesh())
-            self._fit_prepared(epochs_per_window, eager=eager)
+            with profiling.span("fit", window=n_windows):
+                with profiling.span("fit.prepare", rows=len(xw)) as sp:
+                    index = ClassIndex.build(labels, self.label_num, pad_to=window_rows,
+                                             device=self.device)
+                    n = len(xw)
+                    if n < window_rows:  # pad by repeating the window's rows
+                        reps = np.arange(window_rows - n) % n
+                        xw = np.concatenate([xw, xw[reps]])
+                        labels = np.concatenate([labels, labels[reps]])
+                    xw = np.asarray(xw, np.float32)
+                    self._set_data(xw, labels, index)
+                    sp.set(bytes=_data_bytes(xw, labels, index))
+                    if self.state is None:
+                        self.state = self._build_state()
+                        if mesh_lib.current_mesh() is not None:
+                            self._sync_ranks(mesh_lib.current_mesh())
+                self._fit_prepared(epochs_per_window, eager=eager)
             n_windows += 1
         if n_windows == 0:
             raise ValueError(f"empty corpus: {x_csv}")
@@ -623,32 +661,42 @@ class GenerativeTrainer:
             self._run_epochs(epochs, eager)
 
     def _run_epochs(self, epochs: int, eager: bool) -> None:
+        """The epochs in chunks of `epoch_chunk`, each a `fit.epochs` span
+        (with the captured graph's kernel nodes, where it replays one)
+        and a `fit.chunk_end` span."""
         chunk = max(1, min(self.epoch_chunk, epochs))
+        graph = {}
         if eager or self.device.type != "cuda" or nan_debug_active():
             run = self._epoch
         else:
             run = self._captured_epoch()
+            graph = {"graph_nodes": self._graph[1].node_counts}
         history = torch.zeros((chunk, *self._losses_out.shape), device=self.device)
         e = 0
         while e < epochs:
             n = min(chunk, epochs - e)
-            for i in range(n):
-                self._epoch_t.fill_(e + i)
-                run()
-                history[i].copy_(self._losses_out)
-            losses = history[:n].cpu().numpy()
-            for j, k in enumerate(self.loss_keys):
-                self.loss_history[k].extend(losses[:, j].tolist())
-            if self.verbose and self.loss_keys:
-                for i in range(0, n, PRINT_EVERY):
-                    head = ", ".join(f"{k}: {losses[i, j]:.4f}"
-                                     for j, k in enumerate(self.loss_keys))
-                    print(f"{self.name} epoch {e + i}/{epochs}, {head}")
-            e += n
-            if self.checkpoint_dir is not None:
-                save_checkpoint(self, self.checkpoint_dir)
-            self._clear_gen_caches()
-            self._on_chunk_end(e)
+            with profiling.span("fit.epochs", epochs=n,
+                                steps=n * self._replica_steps_per_epoch(), **graph):
+                for i in range(n):
+                    self._epoch_t.fill_(e + i)
+                    run()
+                    history[i].copy_(self._losses_out)
+                losses = history[:n].cpu().numpy()
+            if graph:
+                profiling.count("fit.replays", n)
+            with profiling.span("fit.chunk_end"):
+                for j, k in enumerate(self.loss_keys):
+                    self.loss_history[k].extend(losses[:, j].tolist())
+                if self.verbose and self.loss_keys:
+                    for i in range(0, n, PRINT_EVERY):
+                        head = ", ".join(f"{k}: {losses[i, j]:.4f}"
+                                         for j, k in enumerate(self.loss_keys))
+                        print(f"{self.name} epoch {e + i}/{epochs}, {head}")
+                e += n
+                if self.checkpoint_dir is not None:
+                    save_checkpoint(self, self.checkpoint_dir)
+                self._clear_gen_caches()
+                self._on_chunk_end(e)
         self._clear_gen_caches()
 
     def _epoch(self) -> None:
@@ -694,19 +742,22 @@ class GenerativeTrainer:
         `MAX_GRAPHS`, the oldest dropped first). The warm-up's effects on
         the state and on every generator are undone before the capture.
         Captures made before a `place` of the state are dropped."""
-        self._check_placement()
-        key = self._capture_key()
-        if key in self._graphs:
-            self._graph = (key, self._graphs[key])
-            return self._graph[1].replay
-        self._graph = None
-        if len(self._graphs) >= MAX_GRAPHS:
-            del self._graphs[next(iter(self._graphs))]
-        (graph,) = capture_graphs([self._epoch], self._warm_up, self._static_tensors(),
-                                  self._generators(), self.device)
-        self._graph = (key, graph)
-        self._graphs[key] = graph
-        return graph.replay
+        with profiling.span("fit.capture") as sp:
+            self._check_placement()
+            key = self._capture_key()
+            sp.set(hit=key in self._graphs)
+            if key in self._graphs:
+                self._graph = (key, self._graphs[key])
+                return self._graph[1].replay
+            self._graph = None
+            if len(self._graphs) >= MAX_GRAPHS:
+                del self._graphs[next(iter(self._graphs))]
+            (graph,) = capture_graphs([self._epoch], self._warm_up, self._static_tensors(),
+                                      self._generators(), self.device)
+            profiling.count("fit.captures")
+            self._graph = (key, graph)
+            self._graphs[key] = graph
+            return graph.replay
 
     # ------------------------------------------------------------ generation
     @torch.no_grad()
@@ -731,28 +782,49 @@ class GenerativeTrainer:
         operands, and the fold is kept until the state or its placement
         changes. Only available for the standard conditional MLP
         generator; raises NotImplementedError otherwise."""
-        self._require_state()
-        if not self.conditional_sampling:
-            raise NotImplementedError(
-                f"{self.name}: the fused kernel serves the conditional generator "
-                "only (its input is concat(z, onehot(y))); use generate_samples()")
-        gen = self.state["generator"]
-        labels = self._labels(target_label, num)
-        z = self._prior(num)
-        final = getattr(gen, "out_activation", None) or "none"
-        try:
-            params = None
-            if any(mesh_lib.shard_of(t) is not None for t in mesh_lib.state_tensors(gen)):
-                params = self._gen_cache.get("fast_fold")
-                if params is None:
-                    params = fused.generator_fast_params(gen, whole=mesh_lib.gather_leaf)
-                    self._gen_cache["fast_fold"] = params
-            out = fused.fast_generator_forward(
-                gen, z, one_hot(labels, self.label_num), final=final, params=params)
-        except NotImplementedError as e:
-            raise NotImplementedError(
-                f"{self.name}: {e}; use generate_samples()") from e
-        return out.cpu().numpy()
+        with profiling.span("gen.fast", rows=num):
+            self._require_state()
+            if not self.conditional_sampling:
+                raise NotImplementedError(
+                    f"{self.name}: the fused kernel serves the conditional generator "
+                    "only (its input is concat(z, onehot(y))); use generate_samples()")
+            gen = self.state["generator"]
+            with profiling.span("gen.draw"):
+                labels = self._labels(target_label, num)
+                z = self._prior(num)
+            final = getattr(gen, "out_activation", None) or "none"
+            try:
+                with profiling.span("gen.fold") as sp:
+                    params, built = self._fast_fold(gen)
+                    sp.set(built=built)
+                with profiling.span("gen.forward"):
+                    out = fused.fast_generator_forward(
+                        gen, z, one_hot(labels, self.label_num), final=final, params=params)
+                    if out.is_cuda and profiling.recording():
+                        # the span ends with the kernel, where the copy waits anyway
+                        done = torch.cuda.Event()
+                        done.record()
+                        done.synchronize()
+            except NotImplementedError as e:
+                raise NotImplementedError(
+                    f"{self.name}: {e}; use generate_samples()") from e
+            with profiling.span("gen.copy", bytes=out.numel() * out.element_size()):
+                return out.cpu().numpy()
+
+    def _fast_fold(self, gen):
+        """(the fast path's folded generator, whether it was built now):
+        folded anew each call, unless `parallel.mesh.place` sliced the
+        generator, whose fold is gathered once and kept until the state
+        or its placement changes."""
+        placed = any(mesh_lib.shard_of(t) is not None for t in mesh_lib.state_tensors(gen))
+        params = self._gen_cache.get("fast_fold") if placed else None
+        if params is not None:
+            return params, False
+        params = fused.generator_fast_params(gen, whole=mesh_lib.gather_leaf)
+        if placed:
+            self._gen_cache["fast_fold"] = params
+        profiling.count("gen.fold_builds")
+        return params, True
 
     @torch.no_grad()
     @under_policy

@@ -32,6 +32,7 @@ from cvaegan_tpu_torch.algorithms.base import GenerativeTrainer
 from cvaegan_tpu_torch.core import losses
 from cvaegan_tpu_torch.core.state import grad_update_pair, init_net
 from cvaegan_tpu_torch.models import mlp
+from cvaegan_tpu_torch.utils import profiling
 
 
 class CVAEGAN(GenerativeTrainer):
@@ -57,6 +58,7 @@ class CVAEGAN(GenerativeTrainer):
     _jax_dims = staticmethod(convert.cvaegan_dims)
 
     # ------------------------------------------------------------- steps
+    @profiling.spanned("step.eg")
     def _g_step(self, x_real, y, z_prior, eps, lam_class) -> Dict[str, torch.Tensor]:
         """Joint encoder + generator update (reference
         `src/cvae_gan.py:159-216`): recon MSE + KL on z_enc = mu + eps

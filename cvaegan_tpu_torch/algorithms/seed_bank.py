@@ -67,6 +67,7 @@ from cvaegan_tpu_torch.core.state import Adam
 from cvaegan_tpu_torch.data.sampler import INT32_MAX
 from cvaegan_tpu_torch.models import banked
 from cvaegan_tpu_torch.parallel import mesh as mesh_lib
+from cvaegan_tpu_torch.utils import profiling
 
 
 class _Banked:
@@ -83,9 +84,11 @@ class _Banked:
         work."""
 
     # ------------------------------------------------------------ draws
+    @profiling.spanned("step.draw")
     def _uniform(self, shape) -> torch.Tensor:
         return self.generator.rand(shape)
 
+    @profiling.spanned("step.draw")
     def _normal(self, shape) -> torch.Tensor:
         return self.generator.randn(shape)
 
@@ -104,6 +107,7 @@ class _Banked:
         raw = self.generator.randint(self._data["label_highs"], (num,))
         return self._data["order"].gather(1, raw)
 
+    @profiling.spanned("step.draw")
     def _sample_batch(self, class_id: Optional[int]):
         bs, data = self.gan_cfg.batch_size, self._data
         if self.balanced_mode:
@@ -116,12 +120,14 @@ class _Banked:
         return (self._rows(data["table"][:, class_id].gather(1, r % counts)),
                 self._labels(class_id, bs))
 
+    @profiling.spanned("step.draw")
     def _sample_labels(self, class_id: Optional[int]) -> torch.Tensor:
         bs = self.gan_cfg.batch_size
         if self.balanced_mode:
             return self._present_labels(bs)
         return self._labels(class_id, bs)
 
+    @profiling.spanned("step.draw")
     def _random_batch(self):
         n = self._data["samples"].shape[1]
         r = self.generator.randint([n] * self._k, (self.gan_cfg.batch_size,))
@@ -129,6 +135,9 @@ class _Banked:
 
     def _pattern(self) -> tuple:
         return tuple((self._data["host_counts"] > 0).ravel().tolist())
+
+    def _replica_steps_per_epoch(self) -> int:
+        return self._held_steps
 
     # ----------------------------------------------------------- rounds
     def _class_rounds(self) -> List[Optional[int]]:
@@ -215,6 +224,7 @@ class SeedBank:
             self._held = self.trainers[lo:lo + per]
 
     # ------------------------------------------------------------------ fit
+    @profiling.spanned("bank.fit")
     def fit(self, datasets, eager: bool = False) -> List[GenerativeTrainer]:
         """Train all replicas for `settings.gan.epochs` epochs; `datasets`
         is one dataset (shared by every replica) or a sequence of exactly
@@ -223,25 +233,31 @@ class SeedBank:
         Calling `fit` again continues training from the trained replica
         states, as a trainer's `fit` does. On CUDA each epoch is a replay
         of one captured CUDA graph; `eager=True` runs the plain version.
-        Under `mesh=` every rank of the mesh calls it."""
+        Under `mesh=` every rank of the mesh calls it. Spans: `bank.fit`,
+        and in it `bank.prepare` (each replica's `fit.prepare`),
+        `bank.load`, the banked trainer's `fit.capture`, `fit.epochs` and
+        `fit.chunk_end`, and `bank.store`."""
         t0 = time.time()
         if not isinstance(datasets, (list, tuple)):
             datasets = [datasets] * len(self.trainers)
         if len(datasets) != len(self.trainers):
             raise ValueError(f"{len(self.trainers)} seeds but {len(datasets)} datasets")
         with mesh_lib.use_mesh(None):  # a bank's epoch has no collective
-            for t, ds in zip(self.trainers, datasets):
-                t._prepare(ds)
+            with profiling.span("bank.prepare"):
+                for t, ds in zip(self.trainers, datasets):
+                    t._prepare(ds)
             shapes = {tuple(t._data["samples"].shape) for t in self.trainers}
             if len(shapes) != 1:
                 raise ValueError(f"replica train sets must share one shape, got {shapes}")
             if len({t.label_num for t in self.trainers}) != 1:
                 raise ValueError("replica datasets must share label_num")
 
-            bank = self._load()
+            with profiling.span("bank.load"):
+                bank = self._load()
             epochs = bank.gan_cfg.epochs
             bank._fit_prepared(epochs, eager=eager)
-            self._store()
+            with profiling.span("bank.store"):
+                self._store()
         for key, rows in bank.loss_history.items():
             for k, t in enumerate(self._held):
                 t.loss_history[key].extend(row[k] for row in rows)
@@ -304,6 +320,7 @@ class SeedBank:
                         bank._data[k].copy_(v)
         else:
             self._set_data(bank, data)
+        bank._held_steps = sum(t._steps_per_epoch() for t in self._held)
         return bank
 
     def _store(self) -> None:

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from cvaegan_tpu_torch.parallel import mesh as mesh_lib
+from cvaegan_tpu_torch.utils import profiling
 
 
 def resolve_device(device) -> torch.device:
@@ -105,6 +106,7 @@ class Adam:
         return [*self.m, *self.v, self.count]
 
     @torch.no_grad()
+    @profiling.spanned("step.adam")
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         b1, b2 = self.b1, self.b2
         grads = list(grads)
@@ -223,8 +225,10 @@ def capture_graphs(bodies: Sequence[Callable[[], None]], warm_up: Callable[[], N
     `warm_up` runs first on the capture stream (cuBLAS and the caching
     allocator settle there); its effects on the `static` tensors (every
     tensor the bodies update in place) and on the generators are undone
-    before the captures. Raises where this torch cannot register a
-    generator with a graph: the caller's plain version needs no capture."""
+    before the captures. Each graph's `node_counts` are its kernel nodes
+    by phase (`utils.profiling.count_nodes`; None where the CUDA driver's calls
+    are missing). Raises where this torch cannot register a generator
+    with a graph: the caller's plain version needs no capture."""
     if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
         raise RuntimeError(
             "this torch cannot register a generator with a CUDA graph "
@@ -249,6 +253,8 @@ def capture_graphs(bodies: Sequence[Callable[[], None]], warm_up: Callable[[], N
         for g in generators:
             graph.register_generator_state(g)
         with torch.cuda.graph(graph, stream=stream):
-            body()
+            with profiling.count_nodes(stream.cuda_stream) as nodes:
+                body()
+        graph.node_counts = None if nodes is None else nodes.counts()
         graphs.append(graph)
     return graphs

@@ -39,6 +39,7 @@ from cvaegan_tpu_torch.models.layers import (
     to_compute,
     widened,
 )
+from cvaegan_tpu_torch.utils import profiling
 
 
 class ReplicaGenerators:
@@ -52,6 +53,7 @@ class ReplicaGenerators:
         self.device = device
         self.active = [True] * len(self.generators)
 
+    @profiling.spanned("step.draw")
     def _fill(self, shape, dtype, draw) -> torch.Tensor:
         shape = (len(self.generators), *shape)
         if all(self.active):
@@ -189,6 +191,7 @@ class BankedLayerNorm(nn.Module):
                 + _per_replica(self.bias, x))
 
 
+@profiling.spanned("step.draw")
 def _keep_mask(x: torch.Tensor, keep_prob: float,
                generator: ReplicaGenerators) -> torch.Tensor:
     return generator.rand(x.shape[1:]) < keep_prob

@@ -81,6 +81,7 @@ from torch import nn
 from cvaegan_tpu_torch.core import config as config_lib
 from cvaegan_tpu_torch.core import initializers as init
 from cvaegan_tpu_torch.parallel import mesh as mesh_lib
+from cvaegan_tpu_torch.utils import profiling
 
 LEAKY_SLOPE = 0.2
 #: the policy's names and their dtypes
@@ -418,6 +419,7 @@ def forward_with(module: nn.Module, *args, generator: Optional[torch.Generator] 
     return module(*args)
 
 
+@profiling.spanned("step.draw")
 def _keep_mask(x: torch.Tensor, keep_prob: float,
                generator: Optional[torch.Generator]) -> torch.Tensor:
     """The keep-mask of `x`'s rows; under a mesh, those rows of the global
