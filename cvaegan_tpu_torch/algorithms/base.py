@@ -45,7 +45,8 @@ own steps count to no phase), `step.adam`, and `step.draw` (every draw
 method and dropout mask), which during a capture also mark whose kernel
 nodes are whose; and the fast path's `gen.fast`,
 `gen.draw`, `gen.fold`, `gen.forward` and `gen.copy`. Counts:
-`fit.captures`, `fit.replays`, `gen.fold_builds`.
+`fit.captures`, `fit.replays`, `gen.fold_builds`, `gen.pinned_copies`,
+`gen.copy_blocks`.
 
 Out of core: `fit_streamed` streams an (x, y) CSV pair through windows of
 a fixed row count, each trained for a number of epochs with the state
@@ -107,6 +108,10 @@ QUALIFIED_PATIENCE = 20
 PRINT_EVERY = 50
 #: captured epochs a trainer keeps, one per present-class pattern
 MAX_GRAPHS = 8
+#: rows of one block of the fast path on the card: B1 runs on the blocks
+#: in turn, and each block's copy to the host runs beside the next
+#: block's kernel
+COPY_BLOCK_ROWS = 1 << 17
 
 
 def under_policy(method):
@@ -118,6 +123,45 @@ def under_policy(method):
         with layers.policy(self.gan_cfg):
             return method(self, *args, **kwargs)
     return wrapped
+
+
+def row_blocks(n: int) -> List[Tuple[int, int]]:
+    """[start, stop) of consecutive blocks of at most `COPY_BLOCK_ROWS`
+    rows that cover `n` rows in order: one block for 0 < n <=
+    `COPY_BLOCK_ROWS`, none for 0."""
+    return [(start, min(start + COPY_BLOCK_ROWS, n))
+            for start in range(0, n, COPY_BLOCK_ROWS)]
+
+
+def _forward_pinned(z: torch.Tensor, onehot: torch.Tensor, params, final: str
+                    ) -> Tuple[torch.Tensor, torch.cuda.Event]:
+    """The fast path's forward on the card, its rows written into one
+    page-locked tensor of torch's caching host allocator: B1 runs on
+    `row_blocks` of the one concat(z, onehot) on the current stream, and
+    a side stream copies each block out once its kernel has ended, while
+    the next block runs. Returns the host tensor and the event recorded
+    after its last copy: read the rows only once that event has passed.
+    The tensor belongs to the array made from it, and the allocator takes
+    it back only once that array is dropped, so no later call writes into
+    rows a caller holds."""
+    weights, biases = params
+    x = torch.cat([z, onehot], dim=-1)
+    host = torch.empty((x.shape[0], weights[3].shape[1]), dtype=torch.float32,
+                       pin_memory=True)
+    compute = torch.cuda.current_stream(x.device)
+    side = torch.cuda.Stream(x.device)
+    blocks = row_blocks(x.shape[0])
+    for start, stop in blocks:
+        rows = fused.fused_mlp4(x[start:stop], weights, biases, final=final)
+        side.wait_stream(compute)
+        with torch.cuda.stream(side):
+            host[start:stop].copy_(rows, non_blocking=True)
+        rows.record_stream(side)  # its memory is not reused before the copy ends
+    copied = torch.cuda.Event()
+    copied.record(side)
+    profiling.count("gen.pinned_copies")
+    profiling.count("gen.copy_blocks", len(blocks))
+    return host, copied
 
 
 def _as_arrays(dataset) -> Tuple[np.ndarray, np.ndarray]:
@@ -780,8 +824,11 @@ class GenerativeTrainer:
         'model', the leaves are gathered whole first (every model rank
         calls this), as the Pallas call in JAX receives GSPMD-gathered
         operands, and the fold is kept until the state or its placement
-        changes. Only available for the standard conditional MLP
-        generator; raises NotImplementedError otherwise."""
+        changes. On the card the rows come out block by block into
+        page-locked host memory (`_forward_pinned`), which the returned
+        array holds until the caller drops it. Only available for the
+        standard conditional MLP generator; raises NotImplementedError
+        otherwise."""
         with profiling.span("gen.fast", rows=num):
             self._require_state()
             if not self.conditional_sampling:
@@ -798,17 +845,24 @@ class GenerativeTrainer:
                     params, built = self._fast_fold(gen)
                     sp.set(built=built)
                 with profiling.span("gen.forward"):
-                    out = fused.fast_generator_forward(
-                        gen, z, one_hot(labels, self.label_num), final=final, params=params)
-                    if out.is_cuda and profiling.recording():
-                        # the span ends with the kernel, where the copy waits anyway
-                        done = torch.cuda.Event()
-                        done.record()
-                        done.synchronize()
+                    onehot = one_hot(labels, self.label_num)
+                    if z.is_cuda:
+                        out, copied = _forward_pinned(z, onehot, params, final)
+                        if profiling.recording():
+                            # the span ends with the last block's kernel, so the
+                            # copy's span holds the copy that B1 did not hide
+                            done = torch.cuda.Event()
+                            done.record()
+                            done.synchronize()
+                    else:
+                        out, copied = fused.fast_generator_forward(
+                            gen, z, onehot, final=final, params=params), None
             except NotImplementedError as e:
                 raise NotImplementedError(
                     f"{self.name}: {e}; use generate_samples()") from e
             with profiling.span("gen.copy", bytes=out.numel() * out.element_size()):
+                if copied is not None:
+                    copied.synchronize()
                 return out.cpu().numpy()
 
     def _fast_fold(self, gen):

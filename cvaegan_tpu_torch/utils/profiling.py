@@ -14,7 +14,8 @@ counterpart of `cvaegan_tpu/utils/profiling.py`.
     host events) and its attributes until `spans()` reads it. Off, it is
     one shared no-op context;
   * `counters()`: the program's counts (`fit.captures`, `fit.replays`,
-    `gen.fold_builds`) and the kernel wrappers' launch counts;
+    `gen.fold_builds`, `gen.pinned_copies`, `gen.copy_blocks`) and the
+    kernel wrappers' launch counts;
     `reset()` clears the spans and sets every count to 0;
   * kernel nodes by phase of a captured graph: while `count_nodes` is
     entered (inside a CUDA graph's capture, `core.state.capture_graphs`),

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from cvaegan_tpu_torch import CVAEGAN
+from cvaegan_tpu_torch.algorithms import base
 from cvaegan_tpu_torch.core.state import apply_eval, apply_train
 from cvaegan_tpu_torch.core.losses import AttentionRowEntropy
 from cvaegan_tpu_torch.kernels import block_attention, fused_mlp
@@ -29,6 +30,7 @@ from cvaegan_tpu_torch.models.attention import (
     ResidualAttentionBlock,
 )
 from cvaegan_tpu_torch.models.layers import hidden_sizes, one_hot
+from cvaegan_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -184,15 +186,22 @@ def test_fused_mlp4_rejects_what_it_cannot_run(device):
     assert empty.shape == (0, OUT)
 
 
-def test_generate_samples_fast_launches_the_kernel(device):
+def _serving_model(device):
+    """A CVAE-GAN of 30 features and 5 classes whose generator has run
+    one training forward (BatchNorm statistics that are not the init's)."""
     rng = np.random.default_rng(0)
     x = rng.random((500, 30), dtype=np.float32)
     y = (np.arange(500) % 5).astype(np.int32)
     model = CVAEGAN(seed=0, device="cuda")
     model._prepare((x, y))
-    gen = model.state["generator"]
-    apply_train(gen, 2.0 * torch.randn(256, 128, device=device),
+    apply_train(model.state["generator"], 2.0 * torch.randn(256, 128, device=device),
                 torch.arange(256, device=device) % 5)
+    return model
+
+
+def test_generate_samples_fast_launches_the_kernel(device):
+    model = _serving_model(device)
+    gen = model.state["generator"]
     before = _counts()
     s = model.generate_samples_fast(2, 1000)
     assert _counts() == _moved(before, "tensor_core")  # the serving widths
@@ -204,6 +213,39 @@ def test_generate_samples_fast_launches_the_kernel(device):
     module_out, _ = apply_eval(copy.deepcopy(gen).double(), z.double(), labels)
     assert module_out.dtype == torch.float64
     torch.testing.assert_close(fast.double(), module_out, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [0, 1000, base.COPY_BLOCK_ROWS, base.COPY_BLOCK_ROWS + 1,
+                               834_000])
+def test_generate_samples_fast_copies_blocks_through_pinned_memory(device, n):
+    """The rows come out block by block into page-locked memory: bitwise
+    one launch of B1 on the whole concat from the same draw, one launch
+    for a call of one block or fewer rows, and an array of its own, which
+    later calls never write into."""
+    model = _serving_model(device)
+    gen = model.state["generator"]
+    start = model.generator.get_state()
+    profiling.reset()
+    rows = model.generate_samples_fast(2, n)
+    counts = profiling.counters()
+    blocks = -(-n // base.COPY_BLOCK_ROWS)
+    assert counts["fused_mlp.tc_launches"] == counts["fused_mlp.launches"] == blocks
+    assert counts["gen.pinned_copies"] == 1 and counts["gen.copy_blocks"] == blocks
+    assert rows.shape == (n, 30) and rows.dtype == np.float32
+    assert rows.flags["C_CONTIGUOUS"] and rows.flags["WRITEABLE"]
+    model.generator.set_state(start)
+    labels, z = model._labels(2, n), model._prior(n)
+    weights, biases = fused_mlp.generator_fast_params(gen)
+    whole = fused_mlp.fused_mlp4(torch.cat([z, one_hot(labels, 5)], dim=-1), weights, biases,
+                                 final=gen.out_activation)
+    assert np.array_equal(rows, whole.cpu().numpy())
+    kept = rows.copy()
+    for c in (0, 1, 3, 4, 0):
+        other = model.generate_samples_fast(c, n)
+        assert not np.shares_memory(rows, other)
+        del other  # its block goes back to the allocator for the next call
+    assert np.array_equal(rows, kept)
+    profiling.reset()
 
 
 # ----------------------------------------------------------- block attention

@@ -18,9 +18,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from cvaegan_tpu_torch import CVAEGAN
+from cvaegan_tpu_torch.algorithms import base
 from cvaegan_tpu_torch.algorithms.seed_bank import SeedBank
 from cvaegan_tpu_torch.core import config as tconfig
 from cvaegan_tpu_torch.kernels import block_attention, fused_mlp
+from cvaegan_tpu_torch.models.layers import one_hot
 from cvaegan_tpu_torch.utils import profiling
 
 CLASSES = 3
@@ -130,6 +132,35 @@ def test_plain_fit_and_generation_spans():
     assert by_name["gen.fold"].attrs == {"built": True}
     assert by_name["gen.copy"].attrs == {"bytes": 5 * t.feature_num * 4}
     assert profiling.counters()["gen.fold_builds"] == 1
+
+
+def test_fast_path_on_the_cpu_returns_the_plain_rows():
+    """On the CPU the rows are the plain forward's, copied as before:
+    no page-locked memory, no blocks; no rows give an empty array."""
+    t = _trainer()
+    t._prepare(_data())
+    gen = t.state["generator"]
+    start = t.generator.get_state()
+    got = t.generate_samples_fast(1, 300)
+    t.generator.set_state(start)
+    labels, z = t._labels(1, 300), t._prior(300)
+    want = fused_mlp.fast_generator_forward(
+        gen, z, one_hot(labels, t.label_num), final=gen.out_activation or "none")
+    assert got.dtype == np.float32 and np.array_equal(got, want.numpy())
+    empty = t.generate_samples_fast(2, 0)
+    assert empty.shape == (0, t.feature_num) and empty.dtype == np.float32
+    counts = profiling.counters()
+    assert counts.get("gen.pinned_copies", 0) == counts.get("gen.copy_blocks", 0) == 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, base.COPY_BLOCK_ROWS, base.COPY_BLOCK_ROWS + 1,
+                               834_000])
+def test_row_blocks_cover_the_rows_in_order(n):
+    blocks = base.row_blocks(n)
+    assert len(blocks) == -(-n // base.COPY_BLOCK_ROWS)
+    ends = [0] + [b for _, b in blocks]
+    assert [a for a, _ in blocks] == ends[:-1] and ends[-1] == n
+    assert all(0 < b - a <= base.COPY_BLOCK_ROWS for a, b in blocks)
 
 
 def test_bank_spans_sum_steps_over_replicas():
