@@ -40,10 +40,11 @@ Spans (`utils.profiling.span`, on while a `torch.profiler` session
 records): `fit` (a `fit` call, and each window of `fit_streamed`),
 `fit.prepare`, `fit.capture`, `fit.epochs` (one chunk's epochs through
 the transfer of their losses) and `fit.chunk_end`; the phases of a step,
-`step.d`, `step.c` and `step.eg` (CVAE-GAN's E+G step; other trainers'
-own steps count to no phase), `step.adam`, and `step.draw` (every draw
-method and dropout mask), which during a capture also mark whose kernel
-nodes are whose; and the fast path's `gen.fast`,
+`step.d`, `step.c` and `step.eg` (CVAE-GAN's and RAIN-GAN's E+G steps;
+other trainers' own steps count to no phase), `step.adam`, `step.draw`
+(every draw method and dropout mask) and `net.attention` (each attention
+forward of RAIN-GAN's networks), which during a capture also mark whose
+kernel nodes are whose; and the fast path's `gen.fast`,
 `gen.draw`, `gen.fold`, `gen.forward` and `gen.copy`. Counts:
 `fit.captures`, `fit.replays`, `gen.fold_builds`, `gen.pinned_copies`,
 `gen.copy_blocks`.

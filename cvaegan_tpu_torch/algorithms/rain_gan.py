@@ -22,7 +22,9 @@ raises: the generator is not an MLP stack.
 
 Each step takes its random inputs from the caller, as the CVAE-GAN's do,
 so the epoch is captured as one CUDA graph and a test can feed both
-packages the same inputs.
+packages the same inputs. The D, C and E+G steps are the spans `step.d`,
+`step.c` and `step.eg`, as the CVAE-GAN's are, and each attention forward
+inside them is `net.attention` (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from cvaegan_tpu_torch.models.attention import (
     RAINGenerator,
 )
 from cvaegan_tpu_torch.models.mlp import reparameterize
+from cvaegan_tpu_torch.utils import profiling
 
 
 class RAIN_GAN(GenerativeTrainer):
@@ -75,6 +78,7 @@ class RAIN_GAN(GenerativeTrainer):
         return {k: init_net(v, init_generator, self.device) for k, v in nets.items()}
 
     # ------------------------------------------------------------- steps
+    @profiling.spanned("step.d")
     def _d_step(self, x_real, y, z) -> torch.Tensor:
         """Critic update (`rain_gan.py:101-124` of the JAX package):
         -E[D(x)] + E[D(G(z))] + lambda_att H, one forward of concat(real,
@@ -92,6 +96,7 @@ class RAIN_GAN(GenerativeTrainer):
         loss, _ = grad_update(self.optimizers["discriminator"], loss_fn)
         return loss.detach()
 
+    @profiling.spanned("step.c")
     def _c_step(self, x_real, y, z) -> torch.Tensor:
         """Companion-classifier update (`:126-145`): CE(real) + CE(fake) +
         lambda_att H. The classifier has no state and no dropout."""
@@ -109,6 +114,7 @@ class RAIN_GAN(GenerativeTrainer):
         loss, _ = grad_update(self.optimizers["classifier"], loss_fn)
         return loss.detach()
 
+    @profiling.spanned("step.eg")
     def _g_step(self, x_real, y, z_prior, eps, lam_class) -> Dict[str, torch.Tensor]:
         """Joint encoder + generator update (`:147-199`): recon MSE and KL
         on z_enc = mu + eps exp(log_var / 2), adversarial and CE on

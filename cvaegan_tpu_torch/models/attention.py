@@ -33,6 +33,7 @@ from cvaegan_tpu_torch.models.layers import (
     leaky_relu,
     one_hot,
 )
+from cvaegan_tpu_torch.utils import profiling
 
 #: the blockwise kernels' sequence tile in the JAX package; auto dispatch
 #: takes the kernel only for whole multiples of it, as there
@@ -52,6 +53,11 @@ class MultiHeadSelfAttention(nn.Module):
     (a seed bank's replica axis) are kept: `[..., b, h, s(, s)]`; on the
     kernel path they are folded into the kernel's batch with the heads.
     The kernel path is forward-only.
+
+    The forward, from the Q, K and V projections to the out projection,
+    is the span `net.attention` (`utils/profiling.py`): in a captured
+    epoch its kernel nodes count to that phase, and the backward's to the
+    step that runs it.
     """
 
     def __init__(self, embed_dim: int, num_heads: int = 4,
@@ -70,6 +76,7 @@ class MultiHeadSelfAttention(nn.Module):
         s = x.shape[-2]
         return x.is_cuda and s >= self.kernel_min_seq and s % KERNEL_SEQ_MULTIPLE == 0
 
+    @profiling.spanned("net.attention")
     def forward(self, x: torch.Tensor):
         *lead, s, _ = x.shape
         h, hd = self.num_heads, self.embed_dim // self.num_heads

@@ -14,6 +14,7 @@ block-attention kernels over every head dim and ragged sequence lengths,
 and the wrappers' launch checks.
 """
 
+import collections
 import copy
 
 import numpy as np
@@ -599,3 +600,41 @@ def test_policy_flip_recaptures(device):
     model.fit(_blobs())
     assert model._graph[0][0] == "bfloat16" and model._graph[1] is not f32_graph
     assert model._graphs[f32_key] is f32_graph
+
+
+def test_rain_gan_captured_epoch_nodes_by_phase(device, monkeypatch):
+    """RAIN-GAN's captured epoch: its D, C and E+G steps and every
+    attention forward inside them are phases of their own, and the phases,
+    `net.attention` among them, sum to the graph's kernel nodes, which the
+    graph itself lists."""
+    from cvaegan_tpu_torch import RAIN_GAN
+    from cvaegan_tpu_torch.core import config as tconfig
+
+    graph_class = torch.cuda.CUDAGraph
+
+    def kept():  # a graph that keeps its cudaGraph_t for `raw_cuda_graph`
+        return graph_class(keep_graph=True)
+
+    kept.register_generator_state = graph_class.register_generator_state
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", kept)
+    settings = tconfig.Settings()
+    settings.gan.epochs = 1
+    settings.gan.batch_size = 16
+    model = RAIN_GAN(seed=0, device="cuda", settings=settings)
+    model.verbose = False
+    model.fit(_blobs())
+    counts = model._graph[1].node_counts
+    phases = counts["by_phase"]
+    assert sum(phases.values()) == counts["kernel"]
+    assert all(phases.get(p) for p in (
+        "step.d", "step.c", "step.eg", "step.adam", "step.draw", "net.attention"))
+    # the attention forwards of a round: D 5, C 5, E+G 12 (the generator
+    # twice), each at least its four projections' products
+    steps = model._loop_counts()
+    forwards = len(model._class_rounds()) * (5 * steps["d"] + 5 * steps["c"] + 12 * steps["g"])
+    assert phases["net.attention"] >= 4 * forwards
+    driver = profiling._cuda_driver()
+    nodes = driver.nodes(model._graph[1].raw_cuda_graph())
+    kinds = collections.Counter(driver.node_type(n) for n in nodes)
+    assert (kinds[0], kinds[2], kinds[1]) == (counts["kernel"], counts["memset"],
+                                              counts["memcpy"])

@@ -324,3 +324,40 @@ def test_captured_epoch_nodes_by_phase(monkeypatch):
         assert capture.attrs == {"hit": True}
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old_tf32
+
+
+def test_rain_gan_steps_hold_attention_spans():
+    """A 2-epoch RAIN-GAN fit records its D, C and E+G steps as `step.d`,
+    `step.c` and `step.eg`, each holding the `net.attention` spans of the
+    networks it runs (D: the generator's 3 and the critic's 2; C: the
+    generator's 3 and the classifier's 2; E+G: the encoder's 2, the
+    generator's 3 twice, the critic's 2 and the classifier's 2); a
+    CVAE-GAN fit records no `net.attention` span and its steps as before."""
+    from cvaegan_tpu_torch import RAIN_GAN
+
+    s = _settings()
+    s.gan.epochs = 2
+    rain = RAIN_GAN(seed=0, settings=s, device="cpu")
+    rain.verbose = False
+    cvae = _trainer()
+    with _recording():
+        rain.fit(_data())
+    spans = profiling.spans()
+    names = _names(spans)
+    rounds = s.gan.epochs * CLASSES
+    assert (names["step.d"], names["step.c"], names["step.eg"]) == (
+        rounds * s.gan.d_loop_num, rounds * s.gan.c_loop_num, rounds * s.gan.g_loop_num)
+    inside = collections.Counter(spans[sp.parent].name for sp in spans
+                                 if sp.name == "net.attention" and sp.parent is not None)
+    assert inside["step.d"] == 5 * names["step.d"]
+    assert inside["step.c"] == 5 * names["step.c"]
+    assert inside["step.eg"] == 12 * names["step.eg"]
+    assert names["step.adam"] == names["step.d"] + names["step.c"] + 2 * names["step.eg"]
+    profiling.reset()
+    with _recording():
+        cvae.fit(_data())
+    names = _names(profiling.spans())
+    assert names["net.attention"] == 0
+    assert (names["step.d"], names["step.c"], names["step.eg"]) == (
+        CLASSES * cvae.gan_cfg.d_loop_num, CLASSES * cvae.gan_cfg.c_loop_num,
+        CLASSES * cvae.gan_cfg.g_loop_num)
